@@ -1,0 +1,78 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points go to the card unless asked for the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "xsdeepfwfm_deprecated_torch"
+FORBIDDEN = ("jax", "jaxlib", "xsdeepfwfm_deprecated_tpu")
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in FORBIDDEN for n in names), (path, names)
+
+
+def test_entry_points_default_to_the_card():
+    from xsdeepfwfm_deprecated_torch import weights
+    from xsdeepfwfm_deprecated_torch.config import ModelConfig
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    cfg = ModelConfig(field_size=3, feature_sizes=(1, 4, 5), numerical=1, embedding_size=2,
+                      h_depth=1, deep_nodes=4)
+    params = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if torch.cuda.is_available():
+        assert Predictor(params, cfg).device.type == "cuda"
+        return
+    for call in (lambda: Predictor(params, cfg),
+                 lambda: deepfwfm.init_params(torch.Generator(), cfg),
+                 lambda: weights.params_from_numpy({"w": np.zeros(2)})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: chip_smoke.py would run in full")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert res.returncode != 0 and '"ok"' not in res.stdout

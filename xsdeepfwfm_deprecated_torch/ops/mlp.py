@@ -1,0 +1,66 @@
+"""The deep tower: dropout → (linear → relu → dropout)×depth → bias-free head.
+
+Port of ``xsdeepfwfm_deprecated_tpu/ops/mlp.py:19-89``. Weights are stored
+``(in, out)`` with the JAX leaf names (``layers/i/w``, ``layers/i/b``,
+``fc_w``), so parameters carry across without transposes. Optional 0/1
+masks implement structural sparsity. ``qat_mlp_forward`` comes with the QAT
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from ..device import scaled_normal
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout (scale by 1/(1-p) at train time). The keep mask is
+    drawn from ``generator`` on its own device, then moved to ``x``'s."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = (u < 1.0 - rate).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def init_mlp(generator: torch.Generator, in_dim: int, hidden: Sequence[int],
+             head_scale: float, dtype: torch.dtype = torch.float32,
+             device: torch.device = torch.device("cpu")) -> Dict:
+    """Init one deep net: hidden layers draw weight AND bias from glorot
+    ``N(0,1)·sqrt(2/(fan_in+fan_out))``; the head draws ``N(0,1)·head_scale``."""
+    layers: List[Dict[str, torch.Tensor]] = []
+    dims = [in_dim] + list(hidden)
+    for fi, fo in zip(dims[:-1], dims[1:]):
+        glorot = (2.0 / (fi + fo)) ** 0.5
+        layers.append({"w": scaled_normal(generator, (fi, fo), glorot, dtype, device),
+                       "b": scaled_normal(generator, (fo,), glorot, dtype, device)})
+    fc_w = scaled_normal(generator, (dims[-1], 1), head_scale, dtype, device)
+    return {"layers": layers, "fc_w": fc_w}
+
+
+def mlp_forward(net: Dict, x: torch.Tensor, *, dropout_rates: Sequence[float],
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                masks: Optional[Dict] = None,
+                activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu
+                ) -> torch.Tensor:
+    """(B, in_dim) or (B, F, E) → (B, 1). ``dropout_rates`` has
+    len(hidden)+1 entries: rate[0] applies to the input, rate[i] after
+    hidden layer i. A 3-D input is contracted over (F, E) by the first layer,
+    the same sum as flattening it."""
+    x = dropout(generator, x, dropout_rates[0], train)
+    if x.ndim == 3:
+        x = x.reshape(x.shape[0], -1)
+    for i, layer in enumerate(net["layers"]):
+        w = layer["w"]
+        if masks is not None:
+            w = w * masks["layers"][i]
+        x = activation(x @ w + layer["b"])
+        x = dropout(generator, x, dropout_rates[i + 1], train)
+    fc_w = net["fc_w"]
+    if masks is not None and masks.get("fc_w") is not None:
+        fc_w = fc_w * masks["fc_w"]
+    return x @ fc_w
