@@ -1,6 +1,7 @@
-"""The fused int8 tower: plain version against the Pallas kernel, the CPU
-route of the wrapper, and (on a machine with an NVIDIA GPU) the CUDA kernel
-against the plain version.
+"""The fused int8 tower: plain version against the Pallas kernel, the packed
+weight layout, the choice between the two kernels, the CPU route of the
+wrapper and its refusals, and (on a machine with an NVIDIA GPU) both CUDA
+kernels against the plain version.
 
 Only the Pallas comparison imports JAX, so that the CUDA tests also run on
 a GPU machine without it:
@@ -67,11 +68,61 @@ def test_pack_quantized_deep_layout():
     deep_q = _deep_q(50, [40, 40], seed=2)
     layers_t, (fc, fc_scale) = t_k.pack_quantized_deep(deep_q)
     assert len(layers_t) == 2 and fc.shape == (64,) and fc_scale.shape == (1,)
-    w_t, w_scale, b = layers_t[0]
-    assert w_t.shape == (64, 64) and w_t.dtype == torch.int8
+    w, w_scale, b = layers_t[0]
+    assert w.shape == (4, 64, 16) and w.dtype == torch.int8 and w.is_contiguous()
+    w_t = t_k.untile_weight(w)                       # back to [out][in]
+    assert w_t.shape == (64, 64)
     assert torch.equal(w_t[:40, :50], deep_q["net_1"]["layers"][0]["w_q"].T)
     assert not w_t[40:].any() and not w_t[:, 50:].any()
     assert not w_scale[40:].any() and not b[40:].any() and not fc[40:].any()
+
+
+@pytest.mark.parametrize("width", [64, 416, 608])
+def test_tiled_weight_layout_round_trips(width):
+    """Slab k16 holds bytes [16 k16, 16 k16 + 16) of the K axis for every
+    output channel: byte (n, k) of the [out][in] matrix sits at
+    [k // 16][n][k % 16]."""
+    w_t = torch.from_numpy(np.random.default_rng(width).integers(
+        -127, 128, size=(width, width), dtype=np.int8))
+    w = t_k.tile_weight(w_t)
+    assert w.shape == (width // 16, width, 16) and w.is_contiguous()
+    for n, k in ((0, 0), (3, 17), (width - 1, width - 1), (40, 31)):
+        assert w[k // 16, n, k % 16] == w_t[n, k]
+    assert torch.equal(t_k.untile_weight(w), w_t)
+
+
+@pytest.mark.parametrize("dims,width", [([50, 40, 40], 64), ([64], 64), ([65, 3], 128),
+                                        ([390, 400, 400, 400], 416), ([200, 256], 256),
+                                        ([417], 448), ([600, 20], 608)])
+def test_padded_width(dims, width):
+    """The smallest width the cluster kernel is built for, else the next
+    multiple of 32."""
+    assert t_k.padded_width(dims) == width
+
+
+@pytest.mark.parametrize("width,block_b,n_hidden,route", [
+    (416, 512, 3, "cluster"), (64, 64, 2, "cluster"), (64, 128, 1, "cluster"),
+    (128, 192, 2, "cluster"), (256, 512, 8, "cluster"),
+    (448, 512, 3, "layered"),      # no cluster kernel is built for this width
+    (608, 512, 3, "layered"),
+    (416, 1024, 3, "layered"),     # 16 blocks: more than a portable cluster
+    (416, 576, 3, "layered"),
+    (416, 512, 9, "layered"),      # more layers than the parameter block holds
+    (416, 96, 3, "layered"),       # refused later by the wrapper: not whole blocks
+])
+def test_tower_route_is_a_function_of_the_shapes(width, block_b, n_hidden, route):
+    assert t_k.tower_route(width, block_b, n_hidden) == route
+
+
+def test_cluster_widths_fit_the_card():
+    """Each width the cluster kernel is built for keeps its sums in registers
+    (W/4 a thread) and its A tile and weight ring in one block's shared
+    memory; W/2 is a multiple of 16, as an int8 wgmma N must be."""
+    for width in t_k.CLUSTER_WIDTHS:
+        assert width % 32 == 0 and (width // 2) % 16 == 0 and width // 2 <= 256
+        assert width // 4 <= t_k.MAX_SUMS
+        assert t_k.cluster_smem_bytes(width) + 2048 <= t_k.MAX_SMEM
+    assert t_k.cluster_smem_bytes(416) == 213_920
 
 
 def test_cpu_wrapper_runs_the_plain_version():
@@ -94,13 +145,95 @@ def test_wrapper_rejects_other_devices_and_ragged_batches():
         t_k.int8_mlp_reference(torch.zeros((96, 50)), layers_t, fc_t, block_b=64)
 
 
+REFUSALS = {
+    "ragged batch": "multiple of block_b",
+    "block_b not whole blocks": "multiple of 64",
+    "wrong dtype": "contiguous 2-D float32",
+    "non-contiguous x": "contiguous 2-D float32",
+    "input wider than the tower": ">= the input",
+    "no hidden layer": ">= 1 hidden layer",
+    "weights not packed": "pack_quantized_deep",
+    "head not packed": "pack_quantized_deep",
+    "cluster kernel asked for a tile of 16 blocks": "does not take",
+    "unknown route": "does not take",
+}
+
+
+def _refusal(name, device):
+    """(x, layers_q, fc_q, block_b, route) that the wrapper must refuse."""
+    layers_t, fc_t = t_k.pack_quantized_deep(_deep_q(50, [40], seed=5))
+    layers_t = tuple(tuple(t.to(device) for t in layer) for layer in layers_t)
+    fc_t = tuple(t.to(device) for t in fc_t)
+    x, block_b, route = torch.zeros((256, 50), device=device), 64, None
+    if name == "ragged batch":
+        x, block_b = x[:192], 128
+    elif name == "block_b not whole blocks":
+        x, block_b = x[:192], 96
+    elif name == "wrong dtype":
+        x = x.to(torch.float64)
+    elif name == "non-contiguous x":
+        x = torch.zeros((50, 256), device=device).T
+    elif name == "input wider than the tower":
+        x = torch.zeros((64, 80), device=device)
+    elif name == "no hidden layer":
+        layers_t = ()
+    elif name == "weights not packed":
+        layers_t = ((t_k.untile_weight(layers_t[0][0]),) + layers_t[0][1:],)
+    elif name == "head not packed":
+        fc_t = (fc_t[0][:40], fc_t[1])
+    elif name == "cluster kernel asked for a tile of 16 blocks":
+        x, block_b, route = torch.zeros((1024, 50), device=device), 1024, "cluster"
+    else:
+        route = "fastest"
+    return x, layers_t, fc_t, block_b, route
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_launch_checks_refuse(name):
+    """The checks a CUDA tensor goes through before a launch, run here on
+    CPU operands: they are plain Python over shapes, types and strides."""
+    with pytest.raises(ValueError, match=REFUSALS[name]):
+        t_k.launch_plan(*_refusal(name, "cpu"))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_cuda_wrapper_refuses(name):
+    """On the card: what the kernels do not take raises, and nothing runs
+    the plain version instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    x, layers_d, fc_d, block_b, route = _refusal(name, "cuda")
+    before = t_k.int8_mlp.launches
+    with pytest.raises(ValueError, match=REFUSALS[name]):
+        t_k.int8_mlp(x, layers_d, fc_d, block_b=block_b, route=route)
+    assert t_k.int8_mlp.launches == before
+
+
+def test_launch_plan_names_the_route_and_the_tile():
+    layers_t, fc_t = t_k.pack_quantized_deep(_deep_q(50, [40, 40], seed=8))
+    assert t_k.launch_plan(torch.zeros((256, 50)), layers_t, fc_t, 512, None) == ("cluster", 256)
+    assert t_k.launch_plan(torch.zeros((256, 50)), layers_t, fc_t, 128, None) == ("cluster", 128)
+    assert t_k.launch_plan(torch.zeros((256, 50)), layers_t, fc_t, 128, "layered") == (
+        "layered", 128)
+    assert t_k.launch_plan(torch.zeros((2048, 50)), layers_t, fc_t, 1024, None) == (
+        "layered", 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["cluster", "layered"])
 @pytest.mark.parametrize("in_dim,hidden,b,block_b", [(50, [40, 40], 256, 64),
-                                                     (390, [400, 400, 400], 2048, 512)])
-def test_cuda_kernel_matches_plain_version(in_dim, hidden, b, block_b):
-    """On the card: the kernel against the plain version on the same inputs.
-    atol 1e-4, the tolerance of the fused path: codes and int32 sums are
-    exact and the epilogue rounds as the plain version does."""
+                                                     (50, [40, 40], 256, 128),
+                                                     (51, [40, 33], 384, 192),
+                                                     (195, [200, 180], 1024, 512),
+                                                     (390, [400, 400, 400], 2048, 512),
+                                                     (390, [400, 400, 400], 16384, 512)])
+def test_cuda_kernel_matches_plain_version(in_dim, hidden, b, block_b, route):
+    """On the card: each kernel against the plain version on the same inputs,
+    clusters of 1, 2, 3 and 8 blocks, an odd input width, and more tiles than
+    the card holds clusters at once. atol 1e-4, the tolerance of the fused
+    path: codes and int32 sums are exact and the epilogue rounds as the
+    plain version does."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -109,8 +242,39 @@ def test_cuda_kernel_matches_plain_version(in_dim, hidden, b, block_b):
     fc_d = tuple(t.to(dev) for t in fc_t)
     x = torch.from_numpy(_tiles_with_different_scales(b, in_dim, block_b, seed=7)).to(dev)
     before = t_k.int8_mlp.launches
-    got = t_k.int8_mlp(x, layers_d, fc_d, block_b=block_b)
+    got = t_k.int8_mlp(x, layers_d, fc_d, block_b=block_b, route=route)
     torch.cuda.synchronize()
     assert t_k.int8_mlp.launches == before + 1
     want = t_k.int8_mlp_reference(x, layers_d, fc_d, block_b=block_b)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_hidden", [1, 3, 8])
+def test_prof_steps_name_every_clock_reading(n_hidden):
+    """The cluster kernel writes 6 readings before the first layer and 5 per
+    layer; every one has a name, and the names differ."""
+    steps = t_k.prof_steps(n_hidden)
+    assert len(steps) == 6 + 5 * n_hidden == len(set(steps))
+    assert steps[-1].endswith("head written")
+
+
+@pytest.mark.cuda
+def test_cuda_prof_receives_rising_clock_readings():
+    """On the card: the cluster kernel's first block notes its SM clock at
+    each step, in order; a tensor too short for them is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    layers_t, fc_t = t_k.pack_quantized_deep(_deep_q(50, [40, 40], seed=9))
+    layers_d = tuple(tuple(t.to(dev) for t in layer) for layer in layers_t)
+    fc_d = tuple(t.to(dev) for t in fc_t)
+    x = torch.from_numpy(_tiles_with_different_scales(256, 50, 128, seed=10)).to(dev)
+    prof = torch.zeros(16, dtype=torch.int64, device=dev)
+    got = t_k.int8_mlp(x, layers_d, fc_d, block_b=128, prof=prof)
+    torch.cuda.synchronize()
+    clocks = prof.cpu().tolist()
+    assert all(a < b for a, b in zip(clocks[:15], clocks[1:16]))
+    assert torch.equal(got, t_k.int8_mlp(x, layers_d, fc_d, block_b=128))
+    with pytest.raises(ValueError, match="prof must be"):
+        t_k.int8_mlp(x, layers_d, fc_d, block_b=128, prof=prof[:10])
+

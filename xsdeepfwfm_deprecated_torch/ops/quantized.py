@@ -24,7 +24,9 @@ EXACT_K = (1 << 24) // (127 * 127)   # 1040: the longest exact float32 chunk
 
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:
-    return amax.clamp(min=1e-12) / 127.0
+    # a tensor divisor: by a Python number PyTorch multiplies by 1/127 on a CUDA device,
+    # which is off by one ulp from the division for some values
+    return amax.clamp(min=1e-12) / torch.full_like(amax, 127.0)
 
 
 def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
