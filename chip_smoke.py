@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Serve the full-Criteo DeepFwFM flagship through the PyTorch port on one NVIDIA GPU.
+"""Serve and train the full-Criteo DeepFwFM flagship through the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--iters 200]
+    python3 chip_smoke.py [--seed 0] [--iters 100]
 
 Phases, each printed on its own line:
   1. device: needs CUDA (exits non-zero without it); prints the card's name and power limit
@@ -18,8 +18,20 @@ Phases, each printed on its own line:
      and more tiles than the card holds clusters
   7. times (cluster kernel, layered route, plain version, library yardstick, bound), kernels per tower call, the cluster kernel's own
      clock readings, and Predictor examples/s, each beside the card's name and power limit
-  8. one JSON line of per-kernel results
-  9. last line: {"ok": true, "device": {...}}
+  8. train: DeepFMEstimator.fit on seeded rows (64 batches of 2,048, labels from a seeded
+     logistic model): 3 steps on the card equal the same 3 steps on the CPU (dropout off);
+     then one epoch with dropout on: finite losses, the epoch's mean below the first
+     step's, and table rows that no batch read changed only by L2
+  9. prune: a second epoch resumed from the first's checkpoint with the DeepLight schedule
+     (a refresh every 10 steps over the 13.26 M-value table); each group's sparsity follows
+     the schedule, and no weight below its group's threshold survives a refresh
+ 10. checkpoint and serve: save(sparse=True), load into a fresh estimator, identical
+     logits; the Predictor serves the trained model in fp32 and int8, the int8 tower
+     launching once per 8192-row request and equal to its plain version on these weights
+ 11. training times: ms per step, examples/s, the step's parts, ms per prune refresh and
+     per eval batch, the device's busy share of a step and its largest device operations
+ 12. one JSON line of per-kernel results
+ 13. last line: {"ok": true, "device": {...}}
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX.
 """
@@ -40,6 +52,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
+TRAIN_BATCH = 2048
+TRAIN_BATCHES = 64
 REQUEST_SIZES = (BATCH, BATCH, BATCH, 1, 1000)
 TOL = 1e-4   # fp32: float32 sums in another order; int8: epilogue rounding
 
@@ -170,6 +184,24 @@ def make_requests(cfg, seed: int):
              rng.normal(size=(b, cfg.numerical)).astype(np.float32)) for b in REQUEST_SIZES]
 
 
+def make_training_rows(cfg, seed: int, n: int):
+    """Seeded training rows at the model's cardinalities. The labels come from
+    a seeded logistic model of four numeric and two categorical fields, so
+    that there is something to learn."""
+    rng = np.random.default_rng(seed)
+    highs = list(cfg.feature_sizes[cfg.numerical:])
+    xi = rng.integers(0, highs, size=(n, len(highs))).astype(np.int32)
+    xv = rng.normal(size=(n, cfg.numerical)).astype(np.float32)
+    w = rng.normal(size=4)
+    logit = xv[:, :4] @ w + 0.8 * (xi[:, 0] % 2) - 0.6 * (xi[:, 4] % 3) - 0.5
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    return xi, xv, y
+
+
+def zero_share(t: torch.Tensor) -> float:
+    return 1.0 - float(torch.count_nonzero(t)) / t.numel()
+
+
 def int_mm_tower(x, layers_kn, fc_kn, fc_scale, block_b):
     """The fused tower's function with its products through torch._int_mm on
     the padded operands: a yardstick timed here, never used by the port."""
@@ -206,10 +238,349 @@ def tower_bound(deep_q, b: int, in_bytes: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
 
 
+STEP_TOL = dict(rtol=1e-4, atol=2e-5)   # a parameter after 3 Adam steps, card against CPU
+CLOSE_SHARE = 0.99                      # of the model's values must be within STEP_TOL
+
+
+def lockstep_steps(cfg, tc, rows, seed: int, n_steps: int, trainer, deepfwfm, _tree) -> dict:
+    """``n_steps`` train steps on the card, each checked against the CPU from the
+    card's own parameters and state, so that no difference is carried from one
+    step into the next. The loss within 1e-6; every leaf's gradient within
+    1e-2 of the leaf's largest (float32 sums in another order are 1e-6 of it; a
+    ReLU whose input rounds to the other side of zero for one example of the
+    2,048 moved a bias gradient by 1e-3 of its largest in a run); then the
+    optimizer on the same gradients: parameters and state within 1e-5 relative
+    (elementwise float32 arithmetic, fused or not), a value below a thousandth
+    of its leaf's largest being held to that thousandth."""
+    xi, xv, y = rows
+    batch_size = tc.batch_size
+    params = deepfwfm.init_params(torch.Generator().manual_seed(seed), cfg)
+    opt = trainer.make_optimizer(tc)
+    state = opt.init(params)
+    to_cpu = lambda tree: _tree.tree_map(lambda t: t.detach().cpu().clone(), tree)
+    worst = {"loss": 0.0, "grad": 0.0, "update": 0.0}
+    for i in range(n_steps):
+        rows_i = slice(i * batch_size, (i + 1) * batch_size)
+        batch = {"xi": torch.from_numpy(xi[rows_i]), "xv": torch.from_numpy(xv[rows_i]),
+                 "y": torch.from_numpy(y[rows_i]), "mask": torch.ones(batch_size)}
+        params_c, state_c = to_cpu(params), to_cpu(state)
+        loss_c, grads_c = trainer.loss_and_grads(params_c, batch, cfg, tc)
+        loss_g, grads_g = trainer.loss_and_grads(
+            params, {k: v.to(params["bias"].device) for k, v in batch.items()}, cfg, tc)
+        worst["loss"] = max(worst["loss"], abs(float(loss_g) - float(loss_c)))
+        check(worst["loss"] <= 1e-6, f"step {i}: loss {float(loss_g)} vs CPU {float(loss_c)}")
+        for (name, _), g_g, g_c in zip(_tree.named_leaves(params), grads_g, grads_c):
+            scale = float(g_c.abs().max())
+            err = float((g_g.cpu() - g_c).abs().max()) / max(scale, 1e-30)
+            worst["grad"] = max(worst["grad"], err)
+            check(err <= 1e-2, f"step {i}: gradient of {name} differs by {err} of its largest")
+        opt.update(params, list(grads_g), state)
+        opt.update(params_c, [g.cpu() for g in grads_g], state_c)
+        for tree_g, tree_c in ((params, params_c), (state, state_c)):
+            for (name, a), (_, b) in zip(_tree.named_leaves(tree_g), _tree.named_leaves(tree_c)):
+                a, b = a.cpu().double(), b.double()
+                floor = max(1e-3 * float(b.abs().max()), 1e-30)   # a sum that cancels
+                err = float(((a - b).abs() / b.abs().clamp(min=floor)).max())
+                worst["update"] = max(worst["update"], err)
+                check(err <= 1e-5, f"step {i}: {name} after the update differs by {err} relative")
+    return worst
+
+
+def training_phases(args, cfg, card: str) -> dict:
+    """Phases 8 to 11: train, prune, checkpoint and serve, times. Returns what
+    the kernels line reports of the int8 tower on this path."""
+    import dataclasses
+    import itertools
+    import logging
+    import os
+    import tempfile
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.compression import pruning
+    from xsdeepfwfm_deprecated_torch.compression.quantization import (
+        convert, quantized_forward, quantized_lookup_serving)
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.entry import flagship_train_config
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops import embedding as emb_ops
+    from xsdeepfwfm_deprecated_torch.ops import mlp as mlp_ops
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp, int8_mlp_reference
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.train import metrics, trainer
+
+    quiet = logging.getLogger("chip_smoke.fit")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    where = f"[{card}]"
+    spec = deepfwfm.make_embedding_spec(cfg)
+    num = cfg.numerical
+    xi, xv, y = make_training_rows(cfg, args.seed + 10, TRAIN_BATCH * TRAIN_BATCHES)
+    int8_mlp.launches = 0
+
+    # ---- 8. train: three steps on the card against the CPU, dropout off
+    plain_cfg = dataclasses.replace(cfg, is_shallow_dropout=False, is_deep_dropout=False)
+    head = slice(0, 3 * TRAIN_BATCH)
+    tc = flagship_train_config(n_epochs=1, batch_size=TRAIN_BATCH, random_seed=args.seed)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = trainer.DeepFMEstimator(plain_cfg, tc, logger=quiet, device=device).fit(
+            xi[head], xv[head], y[head])
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check(all(t.device.type == "cuda" for t in _tree.leaves(gpu.params)), "fit left the card")
+    np.testing.assert_allclose(gpu.last_epoch_losses, cpu.last_epoch_losses, rtol=0, atol=1e-5)
+    # Adam's step is lr * g / (|g| + eps) at first, and at this model's start most
+    # gradients of the first layer and many of the table are of the order of eps (1e-8):
+    # there a difference of 1e-8 in a gradient moves the weight by a good part of lr. So the
+    # two runs are held to: the losses; CLOSE_SHARE of all values within STEP_TOL; no value
+    # further apart than Adam can move it (3.2 lr a step); the logits of a batch. What a
+    # single step computes is held tightly by lockstep_steps
+    n_close = n_all = 0
+    far = 0.0
+    for (name, a), (_, b) in zip(_tree.named_leaves(gpu.params), _tree.named_leaves(cpu.params)):
+        diff = (a.cpu() - b).abs()
+        far = max(far, float(diff.max()))
+        n_close += int((diff <= STEP_TOL["atol"] + STEP_TOL["rtol"] * b.abs()).sum())
+        n_all += diff.numel()
+    close_share = n_close / n_all
+    check(close_share >= CLOSE_SHARE, f"only {close_share} of the values within {STEP_TOL}")
+    check(far <= 3 * 3.2 * tc.learning_rate, f"a value is {far} apart after 3 steps")
+    tail = slice(3 * TRAIN_BATCH, 3 * TRAIN_BATCH + BATCH)
+    logit_gap = float(np.abs(gpu._predict_logits(xi[tail], xv[tail])
+                             - cpu._predict_logits(xi[tail], xv[tail])).max())
+    check(logit_gap <= 1e-3, f"logits after 3 steps differ by {logit_gap}")
+    del runs, gpu, cpu
+    lock = lockstep_steps(plain_cfg, tc, (xi, xv, y), args.seed, 3, trainer, deepfwfm, _tree)
+
+    # one epoch with dropout on, through the per-epoch checkpoint
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "flagship")
+    est = trainer.DeepFMEstimator(cfg, tc, logger=quiet)
+    dev = est.device
+    init_table = est.init_params()["emb2"]["dense"].clone()
+    t0 = time.perf_counter()
+    est.fit(xi, xv, y, save_path=path)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    losses = est.last_epoch_losses
+    check(len(losses) == TRAIN_BATCHES and bool(np.isfinite(losses).all()), "losses not finite")
+    check(est.last_epoch_mean_loss < losses[0],
+          f"the epoch's mean loss {est.last_epoch_mean_loss} is not below the first {losses[0]}")
+    check(est._step == TRAIN_BATCHES, f"{est._step} steps")
+    # rows that no batch read: Adam saw the gradient wd * w alone. Replay that on the card
+    touched = np.zeros(spec.dense_rows, dtype=bool)
+    touched[:num] = True
+    touched[(xi.astype(np.int64) + np.asarray(spec.dense_offsets[num:])).ravel()] = True
+    untouched = torch.from_numpy(~touched).to(dev)
+    replay = {"rows": init_table[untouched].clone()}
+    opt = trainer.make_optimizer(tc)
+    state = opt.init(replay)
+    for _ in range(TRAIN_BATCHES):
+        opt.update(replay, [torch.zeros_like(replay["rows"])], state)
+    table = est.params["emb2"]["dense"]
+    l2_err = float((table[untouched] - replay["rows"]).abs().max())
+    moved = float((table[untouched] - init_table[untouched]).abs().max())
+    check(l2_err <= 1e-6 * float(init_table.abs().max()) and moved > 0,
+          f"untouched rows differ from the L2-only replay by {l2_err} (moved {moved})")
+    read_moved = float((table[~untouched] - init_table[~untouched]).abs().max())
+    check(read_moved > moved, "rows that were read moved no further than the others")
+    phase(8, f"train: 3 steps of fit, card vs CPU (dropout off): losses within 1e-5, "
+             f"{close_share:.5f} of the values within rtol {STEP_TOL['rtol']} atol "
+             f"{STEP_TOL['atol']} (limit {CLOSE_SHARE}), furthest {far:.3e}, logits of {BATCH} "
+             f"rows within {logit_gap:.3e}; step by step from the card's own state: loss within "
+             f"{lock['loss']:.3e}, gradients within {lock['grad']:.3e} of each leaf's largest, "
+             f"parameters and state after the update within {lock['update']:.3e} relative; "
+             f"epoch of {TRAIN_BATCHES} x {TRAIN_BATCH} with "
+             f"dropout: first loss {losses[0]:.4f}, mean {est.last_epoch_mean_loss:.4f}, last "
+             f"{losses[-1]:.4f}, train AUC {est.train_result[-1]:.4f}; {int((~touched).sum())} "
+             f"untouched rows follow L2 alone within {l2_err:.3e}; fit took {epoch_s:.2f} s "
+             f"(steps, eval of the train rows, checkpoint) {where}")
+
+    # ---- 9. prune: the second epoch, resumed, on the DeepLight schedule
+    tc2 = flagship_train_config(n_epochs=2, batch_size=TRAIN_BATCH, prune=True, warm=1,
+                                sparse=0.9, random_seed=args.seed)
+    est2 = trainer.DeepFMEstimator(cfg, tc2, logger=quiet)
+    est2.fit(xi, xv, y, resume_from=path)
+    check(est2._step == 2 * TRAIN_BATCHES, f"resumed fit ended at step {est2._step}")
+    target = tc2.adaptive_sparse(TRAIN_BATCHES)
+    net = est2.params["deep"]["net_1"]
+    groups = {"emb2/dense": est2.params["emb2"]["dense"], "fwlw_w": est2.params["fwlw_w"],
+              **{f"deep/layers/{i}/w": l["w"] for i, l in enumerate(net["layers"])}}
+    shares = {}
+    for name, t in groups.items():
+        shares[name] = zero_share(t)
+        tol = max(1e-3, 1.0 / t.numel())     # or one element, for the 390-value fwlw weight
+        check(abs(shares[name] - target) <= tol,
+              f"{name}: sparsity {shares[name]} after the last refresh, schedule {target}")
+    kept = [est2.params["field_cov"], est2.params["lw_w"], net["fc_w"]] + \
+           [l["b"] for l in net["layers"]]
+    check(all(zero_share(t) == 0.0 for t in kept), "a tensor outside the groups was pruned")
+    check(bool(np.isfinite(est2.last_epoch_losses).all()), "pruned epoch: losses not finite")
+    # one refresh by hand at 60%: nothing below a group's threshold survives it
+    big = 0.6
+    pruned = pruning.prune_params(est2.params, big, prune_fm=True, prune_deep=True, prune_r=True)
+    r = est2.params["field_cov"]
+    by_hand = [("emb2/dense", est2.params["emb2"]["dense"], pruned["emb2"]["dense"], None),
+               ("field_cov", r, pruned["field_cov"], 0.5 * (r + r.T))]
+    by_hand += [(f"deep/layers/{i}/w", l["w"], pl["w"], None) for i, (l, pl) in
+                enumerate(zip(net["layers"], pruned["deep"]["net_1"]["layers"]))]
+    for name, before, after, ranked in by_hand:
+        ranked = before if ranked is None else ranked
+        thr = pruning.magnitude_threshold(ranked, big)
+        below = ranked.abs() < thr
+        check(int(torch.count_nonzero(after[below])) == 0, f"{name}: a weight below "
+              f"the threshold {float(thr):.3e} survived the refresh")
+        check(torch.equal(after[~below], before[~below]), f"{name}: a kept weight changed")
+        # field_cov goes in symmetric pairs, so its share moves by two elements at a time
+        check(abs(zero_share(after) - big) <= max(1e-3, 2.0 / after.numel()),
+              f"{name}: {zero_share(after)} pruned at target {big}")
+    phase(9, f"prune: resumed at epoch 2, {TRAIN_BATCHES} steps with a refresh every "
+             f"{tc2.prune_interval}; schedule {target:.5f}, sparsity "
+             + ", ".join(f"{k} {v:.5f}" for k, v in shares.items())
+             + f"; total {est2.epoch_sparsity[-1]:.4f}%; a refresh by hand at {big} leaves "
+               f"nothing below its thresholds {where}")
+
+    # ---- 10. checkpoint and serve the trained, pruned model
+    est2.params = pruned
+    sparse_path = os.path.join(tmp.name, "pruned")
+    est2.save(sparse_path, epoch=1, sparse=True)
+    with np.load(sparse_path + ".npz") as data:
+        check("params::emb2/dense@idx" in data.files, "the pruned table was not stored as COO")
+    npz_bytes = os.path.getsize(sparse_path + ".npz")
+    fresh = trainer.DeepFMEstimator(cfg, tc2, logger=quiet).load(sparse_path)
+    n_req = 2
+    rows = slice(0, n_req * BATCH)
+    want = est2._predict_logits(xi[rows], xv[rows])
+    got = fresh._predict_logits(xi[rows], xv[rows])
+    check(np.array_equal(want, got), "the loaded model's logits differ from the saved model's")
+    pred = Predictor(fresh.params, cfg)
+    qm_cpu = convert(_tree.tree_map(lambda t: t.cpu(), fresh.params), cfg, "dynamic")
+    pred_q = Predictor(qm_cpu)
+    fp32_err = int8_err = int8_gap = auc_gap = 0.0
+    for i in range(n_req):
+        req = slice(i * BATCH, (i + 1) * BATCH)
+        out = pred.logits(xi[req], xv[req])
+        np.testing.assert_allclose(out, want[req], rtol=TOL, atol=TOL)
+        fp32_err = max(fp32_err, float(np.abs(out - want[req]).max()))
+        before = int8_mlp.launches
+        out_q = pred_q.logits(xi[req], xv[req])
+        check(int8_mlp.launches == before + 1, "the int8 tower did not launch once a request")
+        check(out_q.shape == (BATCH,) and bool(np.isfinite(out_q).all()), "int8 logits")
+        on_cpu = quantized_forward(qm_cpu, torch.from_numpy(xi[req]), torch.from_numpy(xv[req]),
+                                   use_fused_kernel=True).numpy()
+        np.testing.assert_allclose(out_q, on_cpu, rtol=0, atol=TOL)
+        int8_err = max(int8_err, float(np.abs(out_q - on_cpu).max()))
+        int8_gap = max(int8_gap, float(np.abs(out_q - out).max()))
+        auc_gap = max(auc_gap, abs(metrics.roc_auc(y[req], out_q) - metrics.roc_auc(y[req], out)))
+    check(auc_gap < 0.01, f"int8 AUC is {auc_gap} from the fp32 AUC on the same rows")
+    train_launches = int8_mlp.launches
+    check(train_launches == n_req, f"the training path launched the tower {train_launches} times")
+    qm = pred_q._model
+    with torch.inference_mode():
+        x = quantized_lookup_serving(qm.emb2_q, spec, torch.from_numpy(xi[:BATCH]).to(dev),
+                                     torch.from_numpy(xv[:BATCH]).to(dev))
+        x = x.reshape(BATCH, -1).contiguous()
+        layers, fc = qm.fused_tower
+        trained_err = float((int8_mlp(x, layers, fc) - int8_mlp_reference(x, layers, fc))
+                            .abs().max())
+    check(trained_err <= TOL, f"int8_mlp vs plain version on trained weights: {trained_err}")
+    phase(10, f"checkpoint and serve: COO checkpoint {npz_bytes} bytes, loaded logits identical; "
+              f"Predictor fp32 vs the estimator max |diff| {fp32_err:.3e}; int8 tower launches "
+              f"{train_launches} for {n_req} requests of {BATCH}, int8 logits vs the CPU's int8 "
+              f"forward max |diff| {int8_err:.3e}, vs the fp32 logits {int8_gap:.3e} (AUC "
+              f"within {auc_gap:.2e}); int8_mlp vs plain version on the trained, pruned weights "
+              f"{trained_err:.3e} (tol {TOL}) {where}")
+
+    # ---- 11. training times, on the dense model of phase 8
+    params, state = est.params, est.opt_state
+    n_cycle = 8
+    cycle = itertools.cycle(list(batching.prefetch_to_device(
+        batching.iter_batches(xi[:n_cycle * TRAIN_BATCH], xv[:n_cycle * TRAIN_BATCH],
+                              y[:n_cycle * TRAIN_BATCH], TRAIN_BATCH), dev)))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def step():
+        return trainer.train_step(params, state, next(cycle), cfg, tc, opt, generator=gen)
+
+    step_ev = cuda_ms(step, args.iters)
+    n_host = args.iters
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_host):
+        step()
+    torch.cuda.synchronize()
+    step_host = (time.perf_counter() - t0) * 1e3 / n_host
+    one = next(cycle)
+    grads = trainer.loss_and_grads(params, one, cfg, tc, generator=gen)[1]
+    fb_ms = cuda_ms(lambda: trainer.loss_and_grads(params, one, cfg, tc, generator=gen),
+                    args.iters // 2)
+    opt_ms = cuda_ms(lambda: opt.update(params, grads, state), args.iters // 2)
+
+    def lookup_fwd_bwd():
+        t = params["emb2"]["dense"].detach().requires_grad_(True)
+        out = emb_ops.packed_lookup({"dense": t}, spec, one["xi"], one["xv"])
+        return torch.autograd.grad(out, t, cot)
+
+    cot = torch.ones((TRAIN_BATCH, cfg.field_size, cfg.embedding_size), device=dev)
+    look_ms = cuda_ms(lookup_fwd_bwd, args.iters // 2)
+    x_in = torch.randn((TRAIN_BATCH, cfg.field_size, cfg.embedding_size), device=dev,
+                       generator=gen)
+    rates = (cfg.dropout_deep,) * (cfg.h_depth + 1)
+
+    def tower_fwd_bwd():
+        leaves = [t.detach().requires_grad_(True) for t in _tree.leaves(net0)]
+        it = iter(leaves)
+        live = _tree.tree_map(lambda _: next(it), net0)
+        xin = x_in.detach().requires_grad_(True)
+        out = mlp_ops.mlp_forward(live, xin, dropout_rates=rates, train=True, generator=gen)
+        return torch.autograd.grad(out.sum(), leaves + [xin])
+
+    net0 = params["deep"]["net_1"]
+    tower_ms = cuda_ms(tower_fwd_bwd, args.iters // 2)
+    prune_kw = dict(prune_fm=True, prune_deep=True, prune_r=False)
+    prune_ms = cuda_ms(lambda: pruning.prune_params(params, 0.3, **prune_kw), 5, warmup=1)
+    xi_e = torch.from_numpy(xi[:BATCH]).to(dev)
+    xv_e = torch.from_numpy(xv[:BATCH]).to(dev)
+    with torch.inference_mode():
+        eval_ms = cuda_ms(lambda: deepfwfm.forward(params, xi_e, xv_e, cfg), args.iters // 2)
+    wall, busy, top = profile_top(step, calls=10)
+    every_op = profile_top(step, calls=5, top=10000)[2]
+    ops_per_step = sum(count for _, _, count in every_op)
+    kinds = {"optimizer's _foreach kernels": ("multi_tensor_apply",),
+             "matrix products": ("gemm", "gemv"),
+             "gather and scatter-add": ("index", "scatter", "gather"),
+             "copies and fills": ("Memcpy", "Memset", "FillFunctor")}
+    by_kind = dict.fromkeys(list(kinds) + ["other elementwise and reductions"], (0.0, 0.0))
+    for key, ms, count in every_op:
+        kind = next((k for k, words in kinds.items() if any(w in key for w in words)),
+                    "other elementwise and reductions")
+        by_kind[kind] = (by_kind[kind][0] + ms, by_kind[kind][1] + count)
+    check(all(np.isfinite(v) and v > 0 for v in (step_ev, step_host, fb_ms, opt_ms, look_ms,
+                                                  tower_ms, prune_ms, eval_ms)), "a time")
+    phase(11, f"training times, B={TRAIN_BATCH}, Adam + L2, dropout on {where}")
+    print(f"  train step: {step_ev:.4f} ms between CUDA events (median of {args.iters}), "
+          f"{step_host:.4f} ms by the host clock ({n_host} steps, one sync) = "
+          f"{TRAIN_BATCH / step_host * 1e3:.0f} examples/s {where}")
+    print(f"  parts of a step (CUDA events, each alone): loss and gradients {fb_ms:.4f} ms | "
+          f"optimizer update {opt_ms:.4f} ms | emb2 lookup forward+backward {look_ms:.4f} ms | "
+          f"tower forward+backward {tower_ms:.4f} ms {where}")
+    print(f"  prune refresh over the whole model {prune_ms:.4f} ms | eval forward of a "
+          f"{BATCH}-row batch {eval_ms:.4f} ms {where}")
+    print(f"  profile of a train step: {wall:.3f} ms per step under the profiler, device "
+          f"operations {busy:.3f} ms ({busy / wall:.0%} busy; {busy / step_host:.0%} of the "
+          f"unprofiled step), {ops_per_step:g} device operations a step {where}")
+    for key, ms, count in top:
+        print(f"    {ms:.4f} ms  x{count:g}  {key}")
+    print("  device time of a step by kind of operation: "
+          + " | ".join(f"{k} {ms:.4f} ms in {n:g}" for k, (ms, n) in by_kind.items())
+          + f" {where}")
+    tmp.cleanup()
+    return {"launches_training_path": train_launches, "max_abs_err_trained": trained_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--iters", type=int, default=200, help="timed calls per kernel")
+    ap.add_argument("--iters", type=int, default=100, help="timed calls per kernel")
     args = ap.parse_args(argv)
 
     # ---- 1. device
@@ -425,12 +796,15 @@ def main(argv=None) -> int:
             check(not any("gemm_kernel" in key or "Memset" in key for key, _, _ in top),
                   "the int8 request still runs the layered route")
 
-    # ---- 8-9. result lines
+    # ---- 8-11. the training path
+    trained = training_phases(args, cfg, card)
+
+    # ---- 12-13. result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
-        "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err,
+        "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": l_ms,
         "layered_ms": layered_ms, "layered_max_abs_err": layered_err,

@@ -2,6 +2,7 @@
 entry points go to the card unless asked for the CPU."""
 
 import ast
+import logging
 import os
 import pathlib
 import subprocess
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from xsdeepfwfm_deprecated_torch import _tree
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "xsdeepfwfm_deprecated_torch"
-FORBIDDEN = ("jax", "jaxlib", "xsdeepfwfm_deprecated_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "xsdeepfwfm_deprecated_tpu")
 
 
 def _port_modules():
@@ -46,20 +49,42 @@ def test_port_sources_import_no_jax(path):
         assert not any(n.split(".")[0] in FORBIDDEN for n in names), (path, names)
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     from xsdeepfwfm_deprecated_torch import weights
-    from xsdeepfwfm_deprecated_torch.config import ModelConfig
+    from xsdeepfwfm_deprecated_torch.config import ModelConfig, TrainConfig
     from xsdeepfwfm_deprecated_torch.models import deepfwfm
     from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from xsdeepfwfm_deprecated_torch.train.trainer import DeepFMEstimator
     cfg = ModelConfig(field_size=3, feature_sizes=(1, 4, 5), numerical=1, embedding_size=2,
                       h_depth=1, deep_nodes=4)
+    tcfg = TrainConfig(n_epochs=1, batch_size=4)
     params = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, params)
+    xi, xv, y = np.zeros((8, 2), np.int32), np.ones((8, 1), np.float32), np.arange(8) % 2
+    quiet = logging.getLogger("test_torch_isolation")
+    quiet.propagate = False
+
+    # the CPU only when asked
+    est = DeepFMEstimator(cfg, tcfg, logger=quiet, device="cpu").load(path)
+    assert all(t.device.type == "cpu" for t in _tree.leaves(est.fit(xi, xv, y).params))
+    assert load_checkpoint(path, params, device="cpu")[0]["bias"].device.type == "cpu"
+
     if torch.cuda.is_available():
         assert Predictor(params, cfg).device.type == "cuda"
+        est = DeepFMEstimator(cfg, tcfg, logger=quiet).load(path)
+        assert est.device.type == "cuda"
+        assert all(t.device.type == "cuda" for t in _tree.leaves(est.fit(xi, xv, y).params))
+        assert load_checkpoint(path, params)[0]["bias"].device.type == "cuda"
         return
     for call in (lambda: Predictor(params, cfg),
                  lambda: deepfwfm.init_params(torch.Generator(), cfg),
-                 lambda: weights.params_from_numpy({"w": np.zeros(2)})):
+                 lambda: weights.params_from_numpy({"w": np.zeros(2)}),
+                 lambda: DeepFMEstimator(cfg, tcfg, logger=quiet).fit(xi, xv, y),
+                 lambda: DeepFMEstimator(cfg, tcfg, logger=quiet).load(path),
+                 lambda: load_checkpoint(path, params),
+                 lambda: weights.load_train_state(path, cfg, tcfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

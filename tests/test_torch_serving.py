@@ -192,11 +192,12 @@ def test_predictor_dynamic_int8_matches_jax(served):
 
 
 def test_predictor_static_int8_matches_jax(served):
-    """Scales from the JAX calibration; same tolerance as the dynamic case."""
+    """Each package calibrates its own scales; same tolerance as the dynamic case."""
     jcfg, tcfg, params, xi, xv = served
     scales = JQ.calibrate(params, jcfg, xi, xv, n_batches=2, batch_size=128)
     want = JPredictor(JQ.convert(params, jcfg, mode="static", act_scales=scales)).logits(xi, xv)
-    qm_t = TQ.convert(_port(params), tcfg, mode="static", act_scales=_port(scales))
+    scales_t = TQ.calibrate(_port(params), tcfg, xi, xv, n_batches=2, batch_size=128)
+    qm_t = TQ.convert(_port(params), tcfg, mode="static", act_scales=scales_t)
     np.testing.assert_allclose(TPredictor(qm_t, device="cpu").logits(xi, xv), want,
                                rtol=0, atol=1e-4)
 

@@ -38,6 +38,18 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def rebuild(template: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
+    """``template``'s structure (empty containers included) with each leaf
+    replaced by ``flat[its name]``."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        return {k: rebuild(v, flat, f"{prefix}{k}/") for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(rebuild(v, flat, f"{prefix}{i}/") for i, v in enumerate(template))
+    return flat[prefix[:-1]]
+
+
 def unflatten(flat: Dict[str, Any]) -> Dict:
     """``{"a/0/w": x}`` → ``{"a": [{"w": x}]}``: a dict whose keys are all
     the integers 0..n-1 becomes a list, as in the JAX layer lists."""

@@ -1,13 +1,15 @@
 """Post-training int8 quantization: the converted model and its forward.
 
-Port of ``xsdeepfwfm_deprecated_tpu/compression/quantization.py:41-118,
+Port of ``xsdeepfwfm_deprecated_tpu/compression/quantization.py:41-160,
 188-333``. ``dynamic`` mode quantizes the deep tower's weights per output
 channel and takes activation scales from each batch at run time; ``static``
 mode uses calibrated activation scales (``act_scales``). Embedding tables
 become weight-only int8 rows with the scale inline. The FM/FwFM
-interactions stay float32. ``calibrate`` and the grouped serving layout
+interactions stay float32. :func:`calibrate` records the activation ranges
+for static mode. ``mode="qat"`` converts a model trained with
+``quantization_aware`` like a dynamic one. The grouped serving layout
 (``group_quantized_tables``, a TPU gather workaround with the same logits)
-are not ported.
+is not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import logging
 from dataclasses import dataclass, fields, replace
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import _tree
@@ -26,7 +29,7 @@ from ..models import deepfwfm
 from ..ops import interactions as inter_ops
 from ..ops import quantized as q_ops
 from ..ops.cuda.int8_mlp import int8_mlp, pack_quantized_deep
-from ..ops.embedding import _clip_per_field, _combine_qr, packed_lookup_serving
+from ..ops.embedding import _clip_per_field, _combine_qr, packed_lookup, packed_lookup_serving
 
 FUSED_BLOCK_B = 512   # rows per scale tile of the fused tower
 
@@ -97,6 +100,49 @@ def convert(params: Dict, cfg: ModelConfig, mode: str = "dynamic",
                           emb1_q=q_tables["emb1"], emb2_q=q_tables["emb2"], deep_q=deep_q,
                           act_scales=act_scales, ffm1_q=q_tables["ffm1"],
                           ffm2_q=q_tables["ffm2"])
+
+
+@torch.no_grad()
+def calibrate(params: Dict, cfg: ModelConfig, xi: np.ndarray, xv: np.ndarray,
+              n_batches: int = 5, batch_size: int = 2048) -> Dict:
+    """Static-PTQ calibration: run ``n_batches`` of ``batch_size`` rows and
+    record the abs-max of the tower's input and of every hidden layer's
+    output, for every deep net (each has its own weights, so its own
+    ranges). Runs on the params' device; the scales come back as 0-d tensors
+    there, ``{"input": s, "nets": {net: [s, ...]}}``."""
+    spec = deepfwfm.make_embedding_spec(cfg)
+    device = _tree.leaves(params)[0].device
+    net_names = [f"net_{i}" for i in range(1, cfg.num_deeps + 1)]
+
+    def layer_maxes(xi_b: torch.Tensor, xv_b: torch.Tensor) -> torch.Tensor:
+        b = xi_b.shape[0]
+        if cfg.use_ffm:
+            f, e = cfg.field_size, cfg.embedding_size
+            pair = packed_lookup(params["ffm2"], spec, xi_b, xv_b)
+            x0 = pair.reshape(b, f, f, e).sum(dim=2).reshape(b, -1)
+        else:
+            x0 = packed_lookup(params["emb2"], spec, xi_b, xv_b).reshape(b, -1)
+        maxes = [x0.abs().max()]
+        for name in net_names:
+            x = x0
+            for layer in params["deep"][name]["layers"]:
+                x = torch.relu(x @ layer["w"] + layer["b"])
+                maxes.append(x.abs().max())
+        return torch.stack(maxes)
+
+    amax = np.zeros(1 + len(net_names) * cfg.h_depth)
+    n = xi.shape[0]
+    for i in range(n_batches):
+        lo = (i * batch_size) % max(n - batch_size, 1)
+        xi_b = torch.from_numpy(np.asarray(xi[lo:lo + batch_size], np.int32)).to(device)
+        xv_b = torch.from_numpy(np.asarray(xv[lo:lo + batch_size], np.float32)).to(device)
+        amax = np.maximum(amax, layer_maxes(xi_b, xv_b).cpu().numpy())
+    # float64 on the host, rounded once to float32, as the JAX package does
+    scales = torch.from_numpy((np.maximum(amax, 1e-12) / 127.0).astype(np.float32)).to(device)
+    h = cfg.h_depth
+    return {"input": scales[0],
+            "nets": {name: list(scales[1 + j * h: 1 + (j + 1) * h].unbind())
+                     for j, name in enumerate(net_names)}}
 
 
 def quantized_lookup_serving(tables_q: Dict, spec, xi: torch.Tensor,

@@ -22,6 +22,13 @@ def scaled_normal(generator: torch.Generator, shape: Sequence[int], scale: float
     return x.to(dtype=dtype, device=device)
 
 
+def exact_div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as an IEEE division on every device. By a Python number
+    PyTorch multiplies by ``1/value`` on a CUDA device, which is off by one
+    ulp from the division for some values; a tensor divisor is divided by."""
+    return x / torch.full_like(x, value)
+
+
 @functools.lru_cache(maxsize=512)
 def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A small read-only tensor of static values (offsets, masks), built once

@@ -6,7 +6,7 @@ The port's own copy of ``__graft_entry__._flagship`` and its cardinality list:
 
 from __future__ import annotations
 
-from .config import ModelConfig
+from .config import ModelConfig, TrainConfig
 
 # Full-Criteo categorical cardinalities: 1,326,042 categorical rows, plus the
 # 13 single-row numeric slots = 1,326,055 packed rows.
@@ -28,3 +28,13 @@ def flagship_config(full_criteo: bool = True) -> ModelConfig:
     return ModelConfig(field_size=39, feature_sizes=(1,) * 13 + cat_sizes, numerical=13,
                        embedding_size=10, deep_nodes=400, h_depth=3, use_fwfm=True,
                        use_deep=True, use_lw=True, use_fwlw=True)
+
+
+def flagship_train_config(**overrides) -> TrainConfig:
+    """The reference's training defaults for the flagship: Adam, lr 1e-3,
+    L2 3e-7, batches of 2,048, a prune refresh every 10 steps. Keyword
+    arguments replace fields."""
+    base = dict(optimizer_type="adam", learning_rate=1e-3, weight_decay=3e-7,
+                batch_size=2048, prune_interval=10)
+    base.update(overrides)
+    return TrainConfig(**base)

@@ -1,6 +1,6 @@
 """Unified FM-family model as plain functions on a dict of tensors.
 
-Port of ``xsdeepfwfm_deprecated_tpu/models/deepfwfm.py:39-209``: LR / FM /
+Port of ``xsdeepfwfm_deprecated_tpu/models/deepfwfm.py:39-231``: LR / FM /
 FFM / FwFM / DeepFM / DeepFFM / DeepFwFM / deep-only, with ``use_lw`` /
 ``use_fwlw`` linear terms and QR embeddings. The parameter dict has the JAX
 layout and leaf names (``emb2/dense``, ``deep/net_1/layers/0/w`` as
@@ -122,10 +122,12 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
         else:
             deep_in = emb2 if emb2 is not None else lookup(params["emb2"], spec, xi, xv)
         rates = ((cfg.dropout_deep,) if cfg.is_deep_dropout else (0.0,)) * (cfg.h_depth + 1)
+        deep_fn = mlp_ops.mlp_forward
+        if cfg.quantization_aware:      # the QAT tower quantizes the flat activation vector
+            deep_in, deep_fn = deep_in.reshape(b, -1), mlp_ops.qat_mlp_forward
         for n in range(1, cfg.num_deeps + 1):
-            x_deep = mlp_ops.mlp_forward(params["deep"][f"net_{n}"], deep_in,
-                                         dropout_rates=rates, train=train,
-                                         generator=generator)
+            x_deep = deep_fn(params["deep"][f"net_{n}"], deep_in, dropout_rates=rates,
+                             train=train, generator=generator)
 
     return _assemble(cfg, params, first_order, second_order, x_deep)
 
@@ -151,4 +153,32 @@ def param_count(params: Dict) -> int:
 
 
 def nonzero_param_count(params: Dict) -> int:
-    return int(sum(int((p != 0).sum()) for p in _tree.leaves(params)))
+    return sum(_nonzero_counts(_tree.leaves(params)))
+
+
+def _nonzero_counts(tensors) -> list:
+    """Non-zero count of each tensor, fetched from the device in one copy."""
+    return torch.stack([torch.count_nonzero(t) for t in tensors]).tolist()
+
+
+def param_group_counts(params: Dict, cfg: ModelConfig, nonzero: bool = False) -> Dict[str, int]:
+    """Parameters (or non-zero parameters) per group, as the reference's
+    summaries count them: first- and second-order embeddings, the DNN's
+    hidden layers, the non-zeros of the symmetrized field matrix, the total."""
+    named = list(_tree.named_leaves(params))
+    counts = (_nonzero_counts([p for _, p in named]) if nonzero
+              else [p.numel() for _, p in named])
+    groups = {"first_order_embeddings": 0, "second_order_embeddings": 0, "dnn": 0,
+              "field_cov_nonzero_sym": 0, "total": 0}
+    for (name, _), c in zip(named, counts):
+        groups["total"] += c
+        if name.startswith(("emb1", "ffm1")):
+            groups["first_order_embeddings"] += c
+        if name.startswith(("emb2", "ffm2")):
+            groups["second_order_embeddings"] += c
+        if name.startswith("deep") and ("/w" in name or "/b" in name) and "fc_w" not in name:
+            groups["dnn"] += c
+    if "field_cov" in params:
+        r = params["field_cov"]
+        groups["field_cov_nonzero_sym"] = int(torch.count_nonzero(0.5 * (r + r.T)))
+    return groups

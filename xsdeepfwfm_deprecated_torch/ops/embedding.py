@@ -6,6 +6,9 @@ row offsets, so a lookup is one gather of shape ``(B, F)`` → ``(B, F, E)``.
 A numeric field has one row, scaled by the raw value. QR (quotient-remainder)
 fields read packed quotient and remainder tables instead of the dense one.
 
+The training lookup has its own backward (:class:`_FieldGather`); the
+serving lookup is forward-only.
+
 Not ported, because they are TPU gather workarounds that leave the result
 unchanged: the routed and windowed gathers (``:161-339``) and the grouped
 serving layout (``:487-560``). Every lookup here is one flat ``index_select``.
@@ -132,12 +135,47 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[1])
 
 
+class _FieldGather(torch.autograd.Function):
+    """The gather of :func:`_field_gather` with its own backward
+    (``xsdeepfwfm_deprecated_tpu/ops/embedding.py:342-381``): fields of more
+    than one row scatter-add their cotangents into a zero table gradient;
+    a single-row field (a numeric slot, the dummy route of a QR field) adds
+    the batch-sum of its cotangents at its static row, instead of B atomic
+    adds to one row. The gradient has the table's dtype. No index gets one."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, raw: torch.Tensor, offsets: Tuple[int, ...],
+                sizes: Tuple[int, ...]) -> torch.Tensor:
+        offs = constant(offsets, raw.dtype, raw.device)
+        idx = (_clip_per_field(raw, sizes) + offs).clamp(0, table.shape[0] - 1)
+        ctx.save_for_backward(idx)
+        ctx.layout = (offsets, sizes, table.shape, table.dtype)
+        return _take(table, idx)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        offsets, sizes, shape, dtype = ctx.layout
+        g = g.to(dtype)
+        grad = g.new_zeros(shape)
+        multi = tuple(f for f, n in enumerate(sizes) if n > 1)
+        single = tuple(f for f, n in enumerate(sizes) if n <= 1)
+        if multi:
+            cols = constant(multi, torch.long, g.device)
+            grad.index_add_(0, idx.index_select(1, cols).reshape(-1),
+                            g.index_select(1, cols).reshape(-1, shape[1]))
+        if single:
+            cols = constant(single, torch.long, g.device)
+            rows = constant(tuple(min(max(offsets[f], 0), shape[0] - 1) for f in single),
+                            idx.dtype, g.device)
+            grad.index_add_(0, rows, g.index_select(1, cols).sum(dim=0))
+        return grad, None, None, None
+
+
 def _field_gather(table: torch.Tensor, offsets: Sequence[int], sizes: Sequence[int],
                   raw: torch.Tensor) -> torch.Tensor:
     """``out[:, f] = table[clip(offsets[f] + clip_f(raw[:, f]))]``, (B, F) → (B, F, E)."""
-    raw = _clip_per_field(raw, sizes)
-    offs = constant(tuple(offsets), raw.dtype, raw.device)
-    return _take(table, (raw + offs).clamp(0, table.shape[0] - 1))
+    return _FieldGather.apply(table, raw, tuple(offsets), tuple(int(n) for n in sizes))
 
 
 def _combine_qr(op: str, q_emb: torch.Tensor, r_emb: torch.Tensor) -> torch.Tensor:

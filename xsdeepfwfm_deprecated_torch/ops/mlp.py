@@ -1,10 +1,10 @@
 """The deep tower: dropout → (linear → relu → dropout)×depth → bias-free head.
 
-Port of ``xsdeepfwfm_deprecated_tpu/ops/mlp.py:19-89``. Weights are stored
+Port of ``xsdeepfwfm_deprecated_tpu/ops/mlp.py:19-117``. Weights are stored
 ``(in, out)`` with the JAX leaf names (``layers/i/w``, ``layers/i/b``,
 ``fc_w``), so parameters carry across without transposes. Optional 0/1
-masks implement structural sparsity. ``qat_mlp_forward`` comes with the QAT
-slice.
+masks implement structural sparsity. :func:`qat_mlp_forward` (``:94-117``)
+is the same tower with fake-quant on input, weights and activations.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..device import scaled_normal
+from .quantized import fake_quant_per_tensor
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
@@ -64,3 +65,16 @@ def mlp_forward(net: Dict, x: torch.Tensor, *, dropout_rates: Sequence[float],
     if masks is not None and masks.get("fc_w") is not None:
         fc_w = fc_w * masks["fc_w"]
     return x @ fc_w
+
+
+def qat_mlp_forward(net: Dict, x: torch.Tensor, *, dropout_rates: Sequence[float],
+                    train: bool = False, generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """The tower with fake-quant on its input, weights and activations (QAT),
+    (B, in_dim) → (B, 1). Each scale is the current tensor's abs-max, outside
+    the gradient (straight-through)."""
+    x = dropout(generator, fake_quant_per_tensor(x), dropout_rates[0], train)
+    for i, layer in enumerate(net["layers"]):
+        x = torch.relu(x @ fake_quant_per_tensor(layer["w"]) + layer["b"])
+        x = dropout(generator, fake_quant_per_tensor(x), dropout_rates[i + 1], train)
+    return x @ fake_quant_per_tensor(net["fc_w"])

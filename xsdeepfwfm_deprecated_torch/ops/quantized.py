@@ -1,7 +1,7 @@
 """Int8 quantization primitives: symmetric per-tensor / per-channel / per-row
 quantization and exact int8 matrix products.
 
-Port of ``xsdeepfwfm_deprecated_tpu/ops/quantized.py:20-96``. Rounding is
+Port of ``xsdeepfwfm_deprecated_tpu/ops/quantized.py:20-121``. Rounding is
 half-to-even (``torch.round``, as ``jnp.round``) and codes clip to
 [-127, 127]. ``fake_quant`` comes with the QAT slice.
 
@@ -20,13 +20,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..device import exact_div
+
 EXACT_K = (1 << 24) // (127 * 127)   # 1040: the longest exact float32 chunk
 
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:
-    # a tensor divisor: by a Python number PyTorch multiplies by 1/127 on a CUDA device,
-    # which is off by one ulp from the division for some values
-    return amax.clamp(min=1e-12) / torch.full_like(amax, 127.0)
+    return exact_div(amax.clamp(min=1e-12), 127.0)
 
 
 def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -107,3 +107,27 @@ def quantized_dense(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if b is not None:
         out = out + b
     return out
+
+
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        return torch.round(x / scale).clamp(-127, 127) * scale
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient: the cotangent
+    passes to ``x`` unchanged, clipped values included, and ``scale`` gets
+    none. ``scale`` is a tensor, so that ``x / scale`` is a division on every
+    device."""
+    return _FakeQuant.apply(x, scale)
+
+
+def fake_quant_per_tensor(x: torch.Tensor) -> torch.Tensor:
+    """:func:`fake_quant` with the scale from this tensor's abs-max, taken
+    outside the gradient."""
+    return fake_quant(x, _scale_of(x.detach().abs().max()))

@@ -2,29 +2,34 @@
 
 The port keeps the JAX parameter layout and leaf names, so weights cross as
 they are: nested dicts and lists of arrays, ``(in, out)`` weights, no
-transposes. This module reads what the JAX package writes, with its own
-copy of the decoding:
+transposes. This module reads what the JAX package writes:
 
 * a parameter pytree already in numpy (:func:`params_from_numpy`);
-* an npz checkpoint from ``train/checkpoint.save_checkpoint``
-  (:func:`load_jax_checkpoint`): ``params::`` names, COO entries
-  (``@idx`` / ``@val`` / ``@shape``), bf16 tables stored widened to f32;
+* an npz checkpoint from either package's ``train/checkpoint.save_checkpoint``
+  (:func:`load_jax_checkpoint` for the params, :func:`load_train_state` for
+  params and optimizer state): ``params::`` and ``opt::`` names, COO entries
+  (``@idx`` / ``@val`` / ``@shape``), bf16 tables stored widened to f32. The
+  port's optimizer state has optax's leaf names (``train/trainer.Optimizer``),
+  so the ``opt::`` entries cross unchanged, and the port's own checkpoints
+  load in the JAX package through its ``load_checkpoint``;
 * a ``_dynamic_quant`` / ``_static_quant`` npz from ``cli/quantization``
   (:func:`load_quantized_artifact`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _tree
 from .compression.quantization import QuantizedModel
-from .config import ModelConfig
+from .config import ModelConfig, TrainConfig
 from .device import DeviceLike, resolve_device
 from .models import deepfwfm
+from .train import checkpoint as ckpt
+from .train.trainer import make_optimizer
 
 _QUANT_SECTIONS = ("params_fp", "emb1_q", "emb2_q", "deep_q", "act_scales", "ffm1_q", "ffm2_q")
 
@@ -52,35 +57,21 @@ def params_to_numpy(params: Any) -> Any:
     return _tree.tree_map(conv, params)
 
 
-def _decode(data, key: str) -> Optional[np.ndarray]:
-    """A dense entry, or a COO one expanded back to dense."""
-    if key in data:
-        return data[key]
-    if key + "@idx" in data:
-        shape = tuple(int(n) for n in data[key + "@shape"])
-        flat = np.zeros(int(np.prod(shape)), dtype=data[key + "@val"].dtype)
-        flat[data[key + "@idx"]] = data[key + "@val"]
-        return flat.reshape(shape)
-    return None
-
-
 def load_jax_checkpoint(path: str, cfg: ModelConfig, device: DeviceLike = None) -> Dict:
-    """Params from an npz written by the JAX ``save_checkpoint``. Every
-    parameter that ``cfg`` defines must be present with its shape; each takes
-    the dtype the port gives it (bf16 tables are cast back from f32)."""
-    device = resolve_device(device)
+    """Params from an npz checkpoint of either package. Every parameter that
+    ``cfg`` defines must be present with its shape; each takes the dtype the
+    port gives it (bf16 tables are cast back from f32)."""
     template = deepfwfm.init_params(None, cfg, device="meta")
-    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-        flat = {}
-        for name, leaf in _tree.named_leaves(template):
-            arr = _decode(data, "params::" + name)
-            if arr is None:
-                raise KeyError(f"checkpoint missing params::{name}")
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"params::{name} has shape {arr.shape}, "
-                                 f"expected {tuple(leaf.shape)}")
-            flat[name] = torch.from_numpy(np.array(arr)).to(device=device, dtype=leaf.dtype)
-    return _tree.unflatten(flat)
+    return ckpt.load_checkpoint(path, template, device=device)[0]
+
+
+def load_train_state(path: str, cfg: ModelConfig, tcfg: TrainConfig,
+                     device: DeviceLike = None) -> Tuple[Dict, Any, Dict]:
+    """(params, optimizer state, metadata) from an npz checkpoint of either
+    package, for the optimizer that ``tcfg`` names."""
+    template = deepfwfm.init_params(None, cfg, device="meta")
+    return ckpt.load_checkpoint(path, template, make_optimizer(tcfg).init(template),
+                                device=device)
 
 
 def load_quantized_artifact(path: str, cfg: ModelConfig, device: DeviceLike = None,
