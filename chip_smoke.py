@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Serve and train the full-Criteo DeepFwFM flagship through the PyTorch port on one NVIDIA GPU.
+"""Serve, train and deploy the full-Criteo DeepFwFM flagship through the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--iters 100]
 
@@ -30,8 +30,23 @@ Phases, each printed on its own line:
      launching once per 8192-row request and equal to its plain version on these weights
  11. training times: ms per step, examples/s, the step's parts, ms per prune refresh and
      per eval batch, the device's busy share of a step and its largest device operations
- 12. one JSON line of per-kernel results
- 13. last line: {"ok": true, "device": {...}}
+ 12. data: get_dataset("tiny-criteo") through the port's readers (which reader ran is
+     printed); a seeded dataset in the criteo on-disk format at the full-Criteo
+     cardinalities, written to a temporary directory, read back and equal to what was written
+ 13. cli.main_all.main with the flagship flags: 2 epochs on tiny-criteo (real rows: the test
+     AUC is printed), then 1 epoch on the seeded criteo directory with structured pruning;
+     each run fits, reloads its checkpoint, reports the size and runs run_benchmark on the
+     card, and the reloaded model's logits equal the port's CPU forward of the checkpoint
+ 14. cli.quantization.main on the pruned checkpoint, dynamic and static: the fused tower
+     kernel launches during the dynamic benchmark and in no other; the saved artifacts load
+     back through load_quantized with identical logits
+ 15. compaction of the structured-pruned model, fp32 and int8, with and without row
+     compaction: Predictor(CompactModel) at B=8192 against the dense forward on the card and
+     against the CPU's compact_forward; the report; request times dense against compact
+ 16. cli.kd.main and cli.nfm.main on tiny-criteo, one epoch each: finite metrics, a smaller
+     student, NFM's logits on the card equal to the CPU's within 1e-5 of the largest
+then one JSON line of per-kernel results, the card's line, and as the last line
+{"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX.
 """
@@ -577,6 +592,276 @@ def training_phases(args, cfg, card: str) -> dict:
     return {"launches_training_path": train_launches, "max_abs_err_trained": trained_err}
 
 
+FLAGSHIP_FLAGS = ["-use_fwfm", "1", "-use_fm", "0", "-use_logit", "0", "-use_deep", "1",
+                  "-use_lw", "1", "-use_fwlw", "1", "-embedding_size", "10",
+                  "-deep_nodes", "400", "-h_depth", "3", "-batch_size", str(TRAIN_BATCH)]
+CRITEO_ROWS = {"train": 65_536, "valid": 16_384, "test": 16_384}
+CLI_TOL = dict(rtol=1e-4, atol=1e-4)   # card against CPU: float32 sums in another order
+
+
+def write_criteo_dir(root: str, cfg, seed: int) -> dict:
+    """A seeded dataset in the ``criteo`` on-disk format under ``root``:
+    ``large/criteo_feature_map`` (``field,raw,index`` lines, one for each index
+    from 1 on) and ``large/criteo_{train,valid,test}.csv`` (label, 13 numeric
+    values, 26 mapped indices). Numeric values are multiples of 1/64, which a
+    decimal of six places holds exactly. Returns what was written, by split."""
+    import os
+    large = os.path.join(root, "large")
+    os.makedirs(large)
+    num = cfg.numerical
+    entries = [np.stack([np.full(size - 1, num + 1 + f), np.arange(1, size), np.arange(1, size)],
+                        axis=1)
+               for f, size in enumerate(cfg.feature_sizes[num:]) if size > 1]
+    np.savetxt(os.path.join(large, "criteo_feature_map"), np.concatenate(entries),
+               fmt="%d", delimiter=",")
+    written = {}
+    for i, (split, n) in enumerate(CRITEO_ROWS.items()):
+        xi, xv, y = make_training_rows(cfg, seed + i, n)
+        xv = (np.round(xv * 64.0) / 64.0).astype(np.float32)
+        np.savetxt(os.path.join(large, f"criteo_{split}.csv"),
+                   np.concatenate([y[:, None], xv, xi], axis=1, dtype=np.float64),
+                   fmt=["%d"] + ["%.6f"] * num + ["%d"] * xi.shape[1], delimiter=",")
+        written[split] = (xi, xv, y)
+    return written
+
+
+def deploy_phases(args, cfg, card: str) -> dict:
+    """Phases 12 to 16: data, the four CLIs, compaction. Returns what the
+    kernels line reports of the int8 tower on this path."""
+    import contextlib
+    import os
+    import tempfile
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.cli import kd, main_all, nfm, quantization
+    from xsdeepfwfm_deprecated_torch.compression.quantization import QuantizedModel
+    from xsdeepfwfm_deprecated_torch.data import get_dataset, native_loader, readers
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.models import nfm as nfm_model
+    from xsdeepfwfm_deprecated_torch.models.factory import get_model
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+    from xsdeepfwfm_deprecated_torch.serving.compaction import (
+        compact_for_serving, compact_forward, compaction_report)
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+
+    where = f"[{card}]"
+    bench_keys = ("loss", "auc", "prauc", "rce", "batch_ms", "batch_onchip_ms",
+                  "examples_per_s", "single_example_ms", "single_example_onchip_ms")
+
+    def check_benchmark(res: dict, what: str) -> None:
+        missing = [k for k in bench_keys if k not in res]
+        check(not missing, f"{what}: run_benchmark left out {missing}")
+        check(all(np.isfinite(res[k]) for k in bench_keys), f"{what}: a benchmark value")
+        check(any(k.startswith("memory/") for k in res), f"{what}: no memory accounting")
+
+    def card_against_cpu(est, xi, xv, strict: bool) -> float:
+        """The reloaded model's logits on the card against the CPU forward of
+        the checkpoint it was loaded from."""
+        check(all(t.device.type == "cuda" for t in _tree.leaves(est.params)), "the CLI left the card")
+        cpu = get_model(cfg.field_size, est.mcfg.feature_sizes, model_cfg=est.mcfg,
+                        train_cfg=est.tcfg, logger=est.logger, device="cpu")
+        cpu.load(est.save_model_name, strict=strict)
+        got, want = est._predict_logits(xi, xv), cpu._predict_logits(xi, xv)
+        np.testing.assert_allclose(got, want, **CLI_TOL)
+        return float(np.abs(got - want).max())
+
+    tmp = tempfile.TemporaryDirectory()
+    home = os.getcwd()
+    os.chdir(tmp.name)          # the CLIs write ./saved_models and ./logs
+    with contextlib.ExitStack() as stack:
+        stack.callback(tmp.cleanup)
+        stack.callback(os.chdir, home)
+
+        # ---- 12. data
+        t0 = time.perf_counter()
+        field_size, train, valid, test = get_dataset("tiny-criteo")
+        tiny_s = time.perf_counter() - t0
+        sizes = train["feature_sizes"]
+        check(field_size == 39 and len(sizes) == 39 and list(sizes[:13]) == [1] * 13,
+              f"tiny-criteo: field_size {field_size}, feature_sizes {sizes}")
+        for name, d in (("train", train), ("test", test)):
+            n = d["label"].shape[0]
+            check(d["index"].shape == (n, 26) and d["index"].dtype == np.int32
+                  and d["value"].shape == (n, 13) and d["value"].dtype == np.float32,
+                  f"tiny-criteo {name}: shapes")
+            check(set(np.unique(d["label"])) <= {0.0, 1.0}, f"tiny-criteo {name}: labels")
+            check(int(d["index"].min()) >= 0 and bool((d["index"].max(axis=0)
+                  < np.asarray(sizes[13:])).all()), f"tiny-criteo {name}: an index out of range")
+        tiny_reader = readers.LAST_READER
+        t0 = time.perf_counter()
+        written = write_criteo_dir(tmp.name, cfg, args.seed + 20)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_field, *splits = get_dataset("criteo", data_dir=tmp.name)
+        read_s = time.perf_counter() - t0
+        check(c_field == 39, "criteo: field_size")
+        for (split, (xi, xv, y)), d in zip(written.items(), splits):
+            check(tuple(d["feature_sizes"]) == tuple(cfg.feature_sizes),
+                  f"criteo {split}: feature_sizes differ from the map that was written")
+            check(np.array_equal(d["index"], xi) and np.array_equal(d["value"], xv)
+                  and np.array_equal(d["label"], y), f"criteo {split}: read back differs")
+        phase(12, f"data: tiny-criteo {train['label'].shape[0]} train and {test['label'].shape[0]} "
+                  f"test rows, {sum(sizes)} packed rows, positives {train['label'].mean():.4f}, "
+                  f"read in {tiny_s:.2f} s by the {tiny_reader} reader; criteo format at "
+                  f"{sum(cfg.feature_sizes)} packed rows: {dict(CRITEO_ROWS)} rows written in "
+                  f"{write_s:.2f} s, read in {read_s:.2f} s by the {readers.LAST_READER} reader "
+                  f"(native loader available: {native_loader.available()}), equal to what was "
+                  f"written")
+
+        # ---- 13. cli.main_all: real rows, then the full-cardinality directory with pruning
+        int8_mlp.launches = 0
+        t0 = time.perf_counter()
+        tiny = main_all.main(["-dataset", "tiny-criteo", "-n_epochs", "2", *FLAGSHIP_FLAGS])
+        tiny_fit_s = time.perf_counter() - t0
+        check(tiny.mcfg.deep_layers == (400, 400, 400) and tiny.mcfg.embedding_size == 10
+              and tiny.mcfg.use_lw and tiny.mcfg.use_fwlw, "main_all did not build the flagship")
+        check_benchmark(tiny.benchmark, "main_all on tiny-criteo")
+        tiny_err = card_against_cpu(tiny, test["index"], test["value"], strict=True)
+        t0 = time.perf_counter()
+        pruned = main_all.main(["-dataset", "criteo", "-n_epochs", "1", "-prune", "1",
+                                "-prune_deep_structured", "1", "-warm", "0", "-sparse", "0.9",
+                                "-prune_omega", "0.2", *FLAGSHIP_FLAGS], data_dir=tmp.name)
+        pruned_fit_s = time.perf_counter() - t0
+        check(tuple(pruned.mcfg.feature_sizes) == tuple(cfg.feature_sizes), "criteo cardinalities")
+        check_benchmark(pruned.benchmark, "main_all on the criteo directory")
+        xi_t, xv_t, y_t = written["test"]
+        pruned_err = card_against_cpu(pruned, xi_t, xv_t, strict=False)
+        net = pruned.params["deep"]["net_1"]
+        dead = [float((~(l["w"] != 0).any(dim=0)).float().mean()) for l in net["layers"]]
+        n_steps = -(-CRITEO_ROWS["train"] // pruned.tcfg.batch_size)
+        target = pruned.tcfg.adaptive_sparse(n_steps)
+        check(target > 0.5 and all(abs(d - target) <= 0.01 for d in dead),
+              f"structured pruning: dead shares {dead}, schedule {target} after {n_steps} steps")
+        check(int8_mlp.launches == 0, "main_all launched the int8 tower")
+        phase(13, f"cli.main_all, flagship flags, on the card {where}")
+        for name, est, secs, err in (("tiny-criteo, 2 epochs", tiny, tiny_fit_s, tiny_err),
+                                     ("criteo directory, 1 pruned epoch", pruned, pruned_fit_s,
+                                      pruned_err)):
+            b = est.benchmark
+            print(f"  {name}: {secs:.1f} s in all; test loss {b['loss']:.6f}, AUC {b['auc']:.6f}, "
+                  f"PRAUC {b['prauc']:.4f}, RCE {b['rce']:.2f}; run_benchmark B=8192 "
+                  f"{b['batch_ms']:.3f} ms host clock, {b['batch_onchip_ms']:.3f} ms between "
+                  f"events = {b['examples_per_s']:.0f} ex/s; B=1 {b['single_example_ms']:.3f} ms "
+                  f"host clock, {b['single_example_onchip_ms']:.3f} ms between events; reloaded "
+                  f"logits vs the CPU forward of the checkpoint max |diff| {err:.3e} {where}")
+        print(f"  tiny-criteo test AUC after 2 epochs, real rows, on the card: "
+              f"{tiny.benchmark['auc']:.6f}; dead units a layer after the pruned epoch: "
+              + ", ".join(f"{d:.3f}" for d in dead) + f" (schedule {target:.3f}) {where}")
+
+        # ---- 14. cli.quantization on the pruned checkpoint
+        t0 = time.perf_counter()
+        q = quantization.main(["-dataset", "criteo", "-prune", "1", "-save_model_path",
+                               pruned.save_model_name, "-dynamic_quantization", "1",
+                               "-static_quantization", "1", *FLAGSHIP_FLAGS], data_dir=tmp.name)
+        quant_s = time.perf_counter() - t0
+        cli_launches = int8_mlp.launches
+        check(q["dynamic"]["tower_launches"] > 0 and q["dynamic"]["tower_launches"] == cli_launches,
+              f"the dynamic benchmark launched the fused tower {q['dynamic']['tower_launches']} "
+              f"times of {cli_launches}")
+        check(q["original"]["tower_launches"] == 0 and q["static"]["tower_launches"] == 0,
+              "the fused tower ran outside the dynamic benchmark")
+        same = {}
+        for mode in ("dynamic", "static"):
+            check_benchmark(q[mode]["benchmark"], f"quantization, {mode}")
+            qm = q[mode]["model"]
+            check(isinstance(qm, QuantizedModel), f"{mode}: not a QuantizedModel")
+            back = quantization.load_quantized(f"{pruned.save_model_name}_{mode}_quant",
+                                               pruned.mcfg, mode=mode)
+            check(back.size_bytes() == qm.size_bytes(), f"{mode}: the artifact's size differs")
+            got = Predictor(back).logits(xi_t[:BATCH], xv_t[:BATCH])
+            want = Predictor(qm).logits(xi_t[:BATCH], xv_t[:BATCH])
+            same[mode] = np.array_equal(got, want)
+            check(same[mode], f"{mode}: the loaded artifact's logits differ")
+        cli_launches = int8_mlp.launches     # the two dynamic Predictors above launched too
+        phase(14, f"cli.quantization on the pruned checkpoint ({quant_s:.1f} s): fused tower "
+                  f"launches {q['dynamic']['tower_launches']} in the dynamic benchmark, 0 in the "
+                  f"original and the static one; artifacts load back with identical logits {where}")
+        for mode in ("original", "dynamic", "static"):
+            b = q[mode]["benchmark"]
+            print(f"  {mode}: AUC {b['auc']:.6f}, loss {b['loss']:.6f}; B=8192 {b['batch_ms']:.3f} ms "
+                  f"host clock, {b['batch_onchip_ms']:.3f} ms between events; B=1 "
+                  f"{b['single_example_ms']:.3f} ms host clock {where}")
+
+        # ---- 15. compaction of the structured-pruned model
+        params = pruned.params
+        dev = pruned.device
+        xi_d = torch.from_numpy(xi_t[:BATCH]).to(dev)
+        xv_d = torch.from_numpy(xv_t[:BATCH]).to(dev)
+        with torch.inference_mode():
+            dense = deepfwfm.forward(params, xi_d, xv_d, pruned.mcfg).cpu().numpy()
+        preds = {"dense fp32": Predictor(params, pruned.mcfg)}
+        lines = []
+        for int8 in (False, True):
+            for compact_rows in (True, False):
+                cm = compact_for_serving(params, pruned.mcfg, int8=int8, compact_rows=compact_rows)
+                pred = Predictor(cm)
+                got = pred.logits(xi_t[:BATCH], xv_t[:BATCH])
+                with torch.inference_mode():
+                    on_cpu = compact_forward(cm, torch.from_numpy(xi_t[:BATCH]),
+                                             torch.from_numpy(xv_t[:BATCH])).numpy()
+                np.testing.assert_allclose(got, on_cpu, **CLI_TOL)
+                gap = float(np.abs(got - dense).max())
+                if not int8:
+                    np.testing.assert_allclose(got, dense, rtol=1e-5, atol=1e-5)
+                else:
+                    check(np.corrcoef(got, dense)[0, 1] > 0.99, "compact int8 logits")
+                rep = compaction_report(params, cm, pruned.mcfg)
+                name = f"compact {'int8' if int8 else 'fp32'}" + ("" if compact_rows
+                                                                   else ", rows kept")
+                preds[name] = pred
+                lines.append(f"  {name}: vs the dense forward on the card max |diff| {gap:.3e}, vs "
+                             f"the CPU's compact_forward {float(np.abs(got - on_cpu).max()):.3e}; "
+                             f"rows {rep['emb2_rows_kept']} of {rep['emb2_rows']}, tower "
+                             f"{rep['tower_shapes_compact']} ({rep['tower_mac_reduction']:.2f}x "
+                             f"fewer products), {rep['bytes_compact']} of {rep['bytes_full']} bytes")
+        check(int8_mlp.launches == cli_launches, "a CompactModel went through the fused tower")
+        one = (xi_t[:1], xv_t[:1])
+        phase(15, f"compaction of the structured-pruned flagship, B={BATCH} {where}")
+        for line in lines:
+            print(line)
+        for name, pred in preds.items():
+            big = host_ms(lambda: pred.logits(xi_t[:BATCH], xv_t[:BATCH]), 20)
+            small = host_ms(lambda: pred.logits(*one), 50)
+            print(f"  Predictor.logits, {name}: B={BATCH} {big:.3f} ms = "
+                  f"{BATCH / big * 1e3:.0f} ex/s, B=1 {small:.3f} ms (host clock, medians of 20 "
+                  f"and 50) {where}")
+
+        # ---- 16. cli.kd and cli.nfm on tiny-criteo
+        t0 = time.perf_counter()
+        teacher, student = kd.main(["-dataset", "tiny-criteo", "-n_epochs", "1",
+                                    "-save_model_path", tiny.save_model_name, *FLAGSHIP_FLAGS])
+        kd_s = time.perf_counter() - t0
+        check_benchmark(student.benchmark, "kd, student")
+        check(student.size_bytes < teacher.size_bytes and student.mcfg.h_depth == 2,
+              f"the student ({student.size_bytes} B) is not smaller than the teacher")
+        check(np.isfinite(student.last_epoch_losses).all(), "kd: losses not finite")
+        t0 = time.perf_counter()
+        net_nfm = nfm.main(["-dataset", "tiny-criteo", "-n_epochs", "1", *FLAGSHIP_FLAGS])
+        nfm_s = time.perf_counter() - t0
+        check(all(np.isfinite(v) for v in net_nfm.test_metrics), "nfm: metrics not finite")
+        check("fc_w" not in net_nfm.params["deep"] and "net_1" not in net_nfm.params["deep"],
+              "the NFM tree")
+        got = net_nfm._predict_logits(test["index"], test["value"])
+        with torch.inference_mode():
+            want = nfm_model.forward(_tree.tree_map(lambda t: t.cpu(), net_nfm.params),
+                                     torch.from_numpy(test["index"]),
+                                     torch.from_numpy(test["value"]), net_nfm.mcfg).numpy()
+        # the reference's N(0,1) tables give logits in the hundreds, each a float32 sum of
+        # 400 units behind a bi-interaction that cancels: held to 1e-5 of the largest
+        # |logit| besides CLI_TOL's rtol
+        np.testing.assert_allclose(got, want, rtol=CLI_TOL["rtol"],
+                                   atol=1e-5 * float(np.abs(want).max()))
+        nfm_err = float(np.abs(got - want).max())
+        phase(16, f"cli.kd ({kd_s:.1f} s): teacher {teacher.size_bytes} B, student "
+                  f"{student.size_bytes} B ({teacher.size_bytes / student.size_bytes:.2f} times "
+                  f"smaller), student test AUC {student.benchmark['auc']:.6f} against the "
+                  f"teacher's {teacher.benchmark['auc']:.6f}; cli.nfm ({nfm_s:.1f} s): test loss "
+                  f"{net_nfm.test_metrics[0]:.6f}, AUC {net_nfm.test_metrics[1]:.6f}, logits on "
+                  f"the card vs the CPU max |diff| {nfm_err:.3e} of max |logit| "
+                  f"{float(np.abs(want).max()):.3e} {where}")
+    return {"launches_cli_path": q["dynamic"]["tower_launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -759,7 +1044,27 @@ def main(argv=None) -> int:
     e2e_fp32 = host_ms(lambda: pred.logits(*reqs[0]), 20)
     e2e_int8 = host_ms(lambda: pred_q.logits(*reqs[0]), 20)
     one_fp32 = host_ms(lambda: pred.logits(*reqs[3]), 50)
-    one_int8 = host_ms(lambda: pred_q.logits(*reqs[3]), 50)
+    # B=1 int8, the layerwise tower: with the float32 copies of the int8 codes that the model
+    # keeps, and converting the codes on every call as before they were kept; in turns
+    per_call = Predictor(qm_cpu)
+    per_call._model.__dict__["deep_f"] = {
+        name: {"layers": [None] * len(net["layers"]), "fc": None}
+        for name, net in qm.deep_q.items()}
+    check(np.array_equal(per_call.logits(*reqs[3]), pred_q.logits(*reqs[3])),
+          "B=1 int8 logits differ between kept and converted float codes")
+    turns = {"kept": [], "converted": []}
+    for _ in range(7):
+        turns["kept"].append(host_ms(lambda: pred_q.logits(*reqs[3]), 50))
+        turns["converted"].append(host_ms(lambda: per_call.logits(*reqs[3]), 50))
+    one_int8 = statistics.median(turns["kept"])
+    one_int8_converted = statistics.median(turns["converted"])
+    ops_one, busy_one = {}, {}
+    for name, p in (("kept", pred_q), ("converted", per_call)):
+        _, busy_one[name], every_op = profile_top(lambda: p.logits(*reqs[3]), top=10000)
+        ops_one[name] = sum(count for _, _, count in every_op)
+    check(ops_one["converted"] == ops_one["kept"] + cfg.h_depth + 1,
+          f"device operations of a B=1 int8 request: {ops_one}")
+    del per_call
     where = f"[{card}]"
     phase(7, f"times, B={BATCH} {where}")
     print(f"  tower, device time (CUDA-graph replay of 20 calls, median of 10): cluster kernel "
@@ -783,6 +1088,12 @@ def main(argv=None) -> int:
           f"int8 {e2e_int8:.3f} ms = {BATCH / e2e_int8 * 1e3:.0f} ex/s {where}")
     print(f"  Predictor.logits at B=1 (host clock, median of 50): fp32 {one_fp32:.3f} ms, "
           f"int8 {one_int8:.3f} ms {where}")
+    print(f"  int8 at B=1 in turns, 7 x 50 calls each (medians "
+          + " | ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v) for k, v in turns.items())
+          + f"): float32 copies of the codes kept {one_int8:.3f} ms, {ops_one['kept']:g} device "
+          f"operations a request taking {busy_one['kept']:.4f} ms | codes converted on every "
+          f"call {one_int8_converted:.3f} ms, {ops_one['converted']:g} device operations taking "
+          f"{busy_one['converted']:.4f} ms {where}")
     for name, pred_x in (("fp32", pred), ("int8", pred_q)):
         wall, busy, top = profile_top(lambda: pred_x.logits(*reqs[0]))
         print(f"  profile {name} Predictor.logits: {wall:.3f} ms per call under the profiler, "
@@ -799,12 +1110,15 @@ def main(argv=None) -> int:
     # ---- 8-11. the training path
     trained = training_phases(args, cfg, card)
 
-    # ---- 12-13. result lines
+    # ---- 12-16. the deploy path through the CLIs
+    deployed = deploy_phases(args, cfg, card)
+
+    # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
-        "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained,
+        "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained, **deployed,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": l_ms,
         "layered_ms": layered_ms, "layered_max_abs_err": layered_err,

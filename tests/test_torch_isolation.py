@@ -89,6 +89,69 @@ def test_entry_points_default_to_the_card(tmp_path):
             call()
 
 
+def test_deploy_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """The entry points of the deploy slice: the four CLIs, ``run_benchmark``,
+    ``Predictor`` on a ``CompactModel``, ``NFMEstimator``, the factory, the
+    hashed-feature baseline and the loaders of compact and quantized models."""
+    from xsdeepfwfm_deprecated_torch import weights
+    from xsdeepfwfm_deprecated_torch.cli import kd, main_all, nfm, quantization
+    from xsdeepfwfm_deprecated_torch.config import ModelConfig, TrainConfig
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.models.factory import get_model
+    from xsdeepfwfm_deprecated_torch.models.hash_mlp_baseline import HashMLPBaseline
+    from xsdeepfwfm_deprecated_torch.models.nfm import NFMConfig, NFMEstimator
+    from xsdeepfwfm_deprecated_torch.serving.compaction import compact_for_serving
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.train.checkpoint import save_checkpoint
+    from xsdeepfwfm_deprecated_torch.train.trainer import DeepFMEstimator
+    sizes = (1, 4, 5)
+    shape = dict(field_size=3, feature_sizes=sizes, numerical=1, embedding_size=2, h_depth=1,
+                 deep_nodes=4)
+    cfg, ncfg = ModelConfig(**shape), NFMConfig(use_fm=True, use_fwfm=False, **shape)
+    tcfg = TrainConfig(n_epochs=1, batch_size=4)
+    params = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cm = compact_for_serving(params, cfg)              # built on the host, wherever it serves
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, params)
+    xi, xv, y = np.zeros((8, 2), np.int32), np.ones((8, 1), np.float32), np.arange(8) % 2
+    quiet = logging.getLogger("test_torch_isolation")
+    quiet.propagate = False
+    monkeypatch.chdir(tmp_path)
+    tiny = ["-dataset", "tiny-criteo", "-n_epochs", "1", "-deep_nodes", "4", "-h_depth", "1",
+            "-embedding_size", "2"]
+    trees = dict(params_fp=cm.params_fp, emb1=cm.emb1, emb2=cm.emb2, deep=cm.deep)
+
+    # the CPU only when asked
+    est = DeepFMEstimator(cfg, tcfg, logger=quiet, device="cpu").load(path)
+    assert "auc" in est.run_benchmark(xi, xv, y, batch_size=4)
+    assert Predictor(cm, device="cpu").device.type == "cpu"
+    assert NFMEstimator(ncfg, tcfg, logger=quiet, device="cpu").fit(xi, xv, y).device.type == "cpu"
+    assert get_model(3, sizes, model_cfg=cfg, train_cfg=tcfg, device="cpu").device.type == "cpu"
+
+    if torch.cuda.is_available():
+        assert Predictor(cm).device.type == "cuda"
+        est = DeepFMEstimator(cfg, tcfg, logger=quiet).load(path)
+        assert "memory/bytes_in_use" in est.run_benchmark(xi, xv, y, batch_size=4)
+        assert NFMEstimator(ncfg, tcfg, logger=quiet).fit(xi, xv, y).device.type == "cuda"
+        assert get_model(3, sizes, model_cfg=cfg, train_cfg=tcfg).device.type == "cuda"
+        assert weights.compact_from_numpy(cfg, False, cm.keep_in0, **trees
+                                          ).params_fp["bias"].device.type == "cuda"
+        return
+    for call in (lambda: main_all.main(tiny),
+                 lambda: nfm.main(tiny),
+                 lambda: quantization.main(tiny + ["-save_model_path", path]),
+                 lambda: kd.main(tiny + ["-save_model_path", path]),
+                 lambda: DeepFMEstimator(cfg, tcfg, logger=quiet).run_benchmark(xi, xv, y),
+                 lambda: Predictor(cm),
+                 lambda: NFMEstimator(ncfg, tcfg, logger=quiet),
+                 lambda: get_model(3, sizes, model_cfg=cfg, train_cfg=tcfg),
+                 lambda: HashMLPBaseline(),
+                 lambda: weights.compact_from_numpy(cfg, False, cm.keep_in0, **trees),
+                 lambda: quantization.load_quantized(path, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: chip_smoke.py would run in full")

@@ -169,10 +169,10 @@ def test_predictor_rejects_unknown_layouts_and_models(served):
     with pytest.raises(ValueError, match="ModelConfig"):
         TPredictor(_port(params), device="cpu")
 
-    class CompactModel:
+    class CompactModel:          # a stranger of that name, not serving.compaction's
         pass
 
-    with pytest.raises(NotImplementedError, match="compaction"):
+    with pytest.raises(TypeError, match="cannot serve a CompactModel"):
         TPredictor(CompactModel(), device="cpu")
 
 

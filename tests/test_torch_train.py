@@ -444,8 +444,10 @@ def test_mesh_flags_raise_until_the_sharding_slice():
     est = TT.DeepFMEstimator(tcfg, TTrain(mesh_model=2), logger=QUIET, device="cpu")
     with pytest.raises(NotImplementedError, match="sharding slice"):
         est.fit(*fit_data(40, seed=6))
-    with pytest.raises(NotImplementedError, match="serving/benchmark.py"):
-        est.run_benchmark(*fit_data(40, seed=6))
+    # run_benchmark no longer waits for serving/benchmark.py: it serves a fitted estimator
+    est = TT.DeepFMEstimator(tcfg, TTrain(n_epochs=1, batch_size=B), logger=QUIET, device="cpu")
+    res = est.fit(*fit_data(40, seed=6)).run_benchmark(*fit_data(40, seed=6), batch_size=B)
+    assert np.isfinite(res["auc"]) and res["batch_ms"] > 0
 
 
 # ------------------------------------------- own copies of jax-free modules

@@ -123,7 +123,10 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
     if prune_deep:
         if "deep" in params:
             new_deep = {}
-            for net_name, net in params["deep"].items():
+            # the DeepFwFM family keeps named nets; NFM's "deep" is one net, without a head
+            one_net = "layers" in params["deep"]
+            nets = {"": params["deep"]} if one_net else params["deep"]
+            for net_name, net in nets.items():
                 layers = []
                 for layer in net["layers"]:
                     w, b = layer["w"], layer["b"]
@@ -137,7 +140,7 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
                         layers.append({**layer,
                                        "w": apply_threshold(w, magnitude_threshold(w, adaptive))})
                 new_deep[net_name] = {**net, "layers": layers}
-            params["deep"] = new_deep
+            params["deep"] = new_deep[""] if one_net else new_deep
         if "fwlw_w" in params:
             w = params["fwlw_w"]
             params["fwlw_w"] = apply_threshold(w, magnitude_threshold(w, adaptive))

@@ -64,6 +64,16 @@ class QuantizedModel:
         """``net_1`` in the fused kernel's layout, packed on first use."""
         return pack_quantized_deep(self.deep_q)
 
+    @functools.cached_property
+    def deep_f(self) -> Dict:
+        """The float32 copies of the tower's int8 codes for the layerwise path
+        (``ops/quantized.float_codes``), made once on the model's device.
+        They are no field: ``size_bytes`` does not count them and a saved
+        artifact does not hold them."""
+        return {name: {"layers": [q_ops.float_codes(l["w_q"]) for l in net["layers"]],
+                       "fc": q_ops.float_codes(net["fc"]["w_q"])}
+                for name, net in self.deep_q.items()}
+
 
 def _quantize_tables(tables: Optional[Dict]) -> Optional[Dict]:
     if tables is None:
@@ -236,7 +246,7 @@ def quantized_forward(qm: QuantizedModel, xi: torch.Tensor, xv: torch.Tensor,
             layers_q, fc_q = qm.fused_tower
             x_deep = int8_mlp(x, layers_q, fc_q, block_b=FUSED_BLOCK_B)
         for nidx in (() if fused_ok else range(1, cfg.num_deeps + 1)):
-            net = qm.deep_q[f"net_{nidx}"]
+            net, net_f = qm.deep_q[f"net_{nidx}"], qm.deep_f[f"net_{nidx}"]
             # per-net calibrated scales; "hidden" is the single-net artifact layout
             a_hidden = (act["nets"][f"net_{nidx}"] if act is not None and "nets" in act
                         else act["hidden"] if act is not None else None)
@@ -244,8 +254,10 @@ def quantized_forward(qm: QuantizedModel, xi: torch.Tensor, xv: torch.Tensor,
             for i, layer in enumerate(net["layers"]):
                 a_scale = None if act is None else (a_hidden[i - 1] if i > 0 else act["input"])
                 h = torch.relu(q_ops.quantized_dense(h, layer["w_q"], layer["w_scale"],
-                                                     layer["b"], a_scale))
+                                                     layer["b"], a_scale,
+                                                     w_f=net_f["layers"][i]))
             x_deep = q_ops.quantized_dense(h, net["fc"]["w_q"], net["fc"]["w_scale"], None,
-                                           None if act is None else a_hidden[-1])
+                                           None if act is None else a_hidden[-1],
+                                           w_f=net_f["fc"])
 
     return deepfwfm._assemble(cfg, qm.params_fp, first_order, second_order, x_deep)

@@ -245,7 +245,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="Max automatic restarts of fit after a transient device or runtime "
                         "failure, resuming from the per-epoch checkpoint")
     p.add_argument("-debug_nans", default=0, type=int,
-                   help="Trap NaN/Inf during fit (wired with the utils slice)")
+                   help="Trap NaN/Inf during fit: autograd anomaly detection and a finite "
+                        "check of every step's loss (one device sync a step)")
     return p
 
 

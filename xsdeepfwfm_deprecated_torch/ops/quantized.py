@@ -11,7 +11,9 @@ a multiple of 8 (the tower's first layer has K = 390). So
 integer-valued tensors: every product and every partial sum is an integer
 of magnitude at most ``127² · K``, which float32 holds exactly while it is
 below 2²⁴, i.e. for K ≤ 1040. Longer K is cut into chunks of 1040 whose
-exact results are summed in int32.
+exact results are summed in int32. A model keeps the float32 copy of each
+weight's codes beside the codes (:func:`float_codes`, made once on the
+model's device), so a call converts only the activations.
 """
 
 from __future__ import annotations
@@ -76,34 +78,47 @@ def gather_dequant(qtable: Dict[str, torch.Tensor], idx: torch.Tensor) -> torch.
     return vals * scales
 
 
-def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 → exact int32 accumulators (see module doc)."""
+def float_codes(w_q: torch.Tensor) -> torch.Tensor:
+    """The float32 copy of a weight's int8 codes that :func:`exact_int_matmul`
+    multiplies by. It holds the same integers, so it is no parameter: a model
+    makes it once on its device and keeps it beside the codes."""
+    return w_q.to(torch.float32)
+
+
+def exact_int_matmul(a: torch.Tensor, b: torch.Tensor,
+                     b_f: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 → exact int32 accumulators (see module doc).
+    ``b_f`` is ``float_codes(b)``, kept by the caller; without it the codes
+    are converted here."""
+    if b_f is None:
+        b_f = float_codes(b)
     k = a.shape[1]
     acc = None
     for lo in range(0, k, EXACT_K):
-        part = (a[:, lo:lo + EXACT_K].to(torch.float32)
-                @ b[lo:lo + EXACT_K].to(torch.float32)).to(torch.int32)
+        part = (a[:, lo:lo + EXACT_K].to(torch.float32) @ b_f[lo:lo + EXACT_K]).to(torch.int32)
         acc = part if acc is None else acc + part
     return acc
 
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
-                w_scale: torch.Tensor) -> torch.Tensor:
+                w_scale: torch.Tensor, w_f: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, K) int8 @ (K, N) int8 → f32 with int32 accumulation. ``w_scale``
-    may be per tensor or per output channel."""
-    acc = exact_int_matmul(x_q, w_q)
+    may be per tensor or per output channel; ``w_f`` as in
+    :func:`exact_int_matmul`."""
+    acc = exact_int_matmul(x_q, w_q, w_f)
     return acc.to(torch.float32) * x_scale * w_scale.reshape(1, -1)
 
 
 def quantized_dense(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                    b: Optional[torch.Tensor], act_scale: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    b: Optional[torch.Tensor], act_scale: Optional[torch.Tensor] = None,
+                    w_f: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One quantized linear layer: f32 activations → int8 → int8 product → f32.
     ``act_scale=None`` takes the scale from this batch's abs-max (dynamic);
-    a fixed scale is static post-training quantization."""
+    a fixed scale is static post-training quantization. ``w_f`` is the kept
+    ``float_codes(w_q)``."""
     if act_scale is None:
         act_scale = _scale_of(x.abs().max())
-    out = int8_matmul(_codes(x, act_scale), w_q, act_scale, w_scale)
+    out = int8_matmul(_codes(x, act_scale), w_q, act_scale, w_scale, w_f)
     if b is not None:
         out = out + b
     return out

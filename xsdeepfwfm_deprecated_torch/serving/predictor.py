@@ -1,8 +1,9 @@
-"""Serving predictor over fp32 params or a :class:`QuantizedModel`.
+"""Serving predictor over fp32 params, a :class:`QuantizedModel` or a
+:class:`CompactModel`.
 
 Port of ``xsdeepfwfm_deprecated_tpu/serving/predictor.py:22-111``. The model
 moves to the device once, at construction; each request runs the eager
-forward there. ``CompactModel`` serving comes with the compaction slice.
+forward there.
 """
 
 from __future__ import annotations
@@ -18,12 +19,14 @@ from ..config import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
 from ..ops.embedding import packed_lookup_serving
+from .compaction import CompactModel, compact_forward
 
 LAYOUTS = ("auto", "grouped", "flat", "super")
 
 
 class Predictor:
-    """Holds (params | QuantizedModel) on a device; batch or single-example.
+    """Holds (params | QuantizedModel | CompactModel) on a device; batch or
+    single-example.
 
     ``device=None`` means the CUDA device, and raises when there is none.
     ``layout`` accepts the JAX package's values ("auto", "grouped", "flat",
@@ -31,21 +34,30 @@ class Predictor:
     and super-row layouts are TPU gather workarounds with the same logits.
     A :class:`QuantizedModel` runs its deep tower through the fused int8
     kernel exactly when the device is CUDA, the activation scales are
-    dynamic (``act_scales is None``) and the model has a deep tower.
+    dynamic (``act_scales is None``) and the model has a deep tower. A
+    :class:`CompactModel`'s int8 tower always runs layer by layer, with the
+    per-batch scale its logits are defined by.
     """
 
-    def __init__(self, model: Union[Dict, QuantizedModel], cfg: Optional[ModelConfig] = None,
-                 layout: str = "auto", device: DeviceLike = None):
+    def __init__(self, model: Union[Dict, QuantizedModel, CompactModel],
+                 cfg: Optional[ModelConfig] = None, layout: str = "auto",
+                 device: DeviceLike = None):
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
-        if not isinstance(model, (dict, QuantizedModel)):
-            raise NotImplementedError(
-                f"serving a {type(model).__name__} is not ported yet "
-                "(ROADMAP.md queue 1, compaction)")
+        if not isinstance(model, (dict, QuantizedModel, CompactModel)):
+            raise TypeError(f"cannot serve a {type(model).__name__}: give fp32 params (a dict), "
+                            "a QuantizedModel or a CompactModel")
         self.device = resolve_device(device)
-        if isinstance(model, QuantizedModel):
+        if isinstance(model, CompactModel):
             self.cfg = model.cfg
             self._model = model.to(self.device)
+            self._model.deep_f, self._model.numeric_rows   # made once, on the device
+            self._fn = compact_forward
+        elif isinstance(model, QuantizedModel):
+            self.cfg = model.cfg
+            self._model = model.to(self.device)
+            if model.deep_q is not None:
+                self._model.deep_f    # the layerwise path's float copies, made once
             fused = (self.device.type == "cuda" and model.act_scales is None
                      and model.deep_q is not None)
             if fused and self.cfg.num_deeps == 1:

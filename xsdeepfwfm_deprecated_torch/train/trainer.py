@@ -16,7 +16,9 @@ on a dict of tensors:
   epoch-end shuffle, per-epoch checkpoints, the three-declines early stop.
 
 Nothing in the per-step loop reads a value back from the device: the losses
-stay there and are fetched once per epoch.
+stay there and are fetched once per epoch. Inside a
+``utils.debug.nan_debugging`` block every step's loss is checked with
+``isfinite``, which does read it.
 
 Not ported, because they are dispatch and layout forms with the same
 results: the K-steps-per-dispatch scan (``:88-159``), the scanned eval
@@ -37,10 +39,14 @@ import torch.nn.functional as F
 from .. import _tree
 from ..compression.distillation import kd_loss
 from ..compression.pruning import prune_params, sparsity_report
+from ..compression.quantization import convert
 from ..config import ModelConfig, TrainConfig
 from ..data import batching
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
+from ..serving.benchmark import run_benchmark
+from ..serving.predictor import Predictor
+from ..utils import debug
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -322,6 +328,8 @@ class DeepFMEstimator:
                     self.params, self.opt_state, batch, self.mcfg, tc, optimizer,
                     generator=generator, teacher_logits=batch.get("teacher"),
                     forward_fn=forward_fn))
+                if debug.finite_checks_enabled():
+                    debug.require_finite(epoch_losses[-1], f"the loss of step {self._step}")
                 self._step += 1
 
                 # DeepLight pruning inside the loop: after every prune_interval real
@@ -451,10 +459,20 @@ class DeepFMEstimator:
         self._step = meta.get("step", 0)
         return self
 
-    def run_benchmark(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_benchmark comes with serving/benchmark.py (ROADMAP.md queue 1, the CLIs and "
-            "data/); until then serve the model with serving.predictor.Predictor")
+    def run_benchmark(self, Xi, Xv, y, batch_size: int = 8192, cuda: bool = False,
+                      quantization_aware: bool = False, trace_dir: Optional[str] = None):
+        """Reference ``run_benchmark`` parity (``model/DeepFMs.py:947-1009``):
+        quality metrics, a profiler trace, batch timing and one-example
+        latency, on the estimator's device. A QAT model is converted to a true
+        int8 model first (reference ``:751-755, :968-971``). ``cuda`` is
+        accepted for API compatibility and ignored."""
+        if quantization_aware or self.mcfg.quantization_aware:
+            predictor = Predictor(convert(self.params, self.mcfg, mode="qat"),
+                                  device=self.device)
+        else:
+            predictor = Predictor(self.params, self.mcfg, device=self.device)
+        return run_benchmark(predictor, Xi, Xv, y, batch_size=batch_size,
+                             trace_dir=trace_dir, logger=self.logger)
 
     def print_size_of_model(self) -> int:
         size = ckpt.model_size_bytes(self.params)

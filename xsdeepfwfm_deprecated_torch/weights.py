@@ -13,12 +13,16 @@ transposes. This module reads what the JAX package writes:
   so the ``opt::`` entries cross unchanged, and the port's own checkpoints
   load in the JAX package through its ``load_checkpoint``;
 * a ``_dynamic_quant`` / ``_static_quant`` npz from ``cli/quantization``
-  (:func:`load_quantized_artifact`).
+  (:func:`load_quantized_artifact`);
+* a JAX ``CompactModel``'s leaves as numpy arrays (:func:`compact_from_numpy`).
+
+A model family other than DeepFwFM (NFM) passes its own ``init_fn`` for the
+template that names a checkpoint's entries.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,10 +32,11 @@ from .compression.quantization import QuantizedModel
 from .config import ModelConfig, TrainConfig
 from .device import DeviceLike, resolve_device
 from .models import deepfwfm
+from .serving.compaction import CompactModel
 from .train import checkpoint as ckpt
 from .train.trainer import make_optimizer
 
-_QUANT_SECTIONS = ("params_fp", "emb1_q", "emb2_q", "deep_q", "act_scales", "ffm1_q", "ffm2_q")
+QUANT_SECTIONS = ("params_fp", "emb1_q", "emb2_q", "deep_q", "act_scales", "ffm1_q", "ffm2_q")
 
 
 def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
@@ -57,19 +62,25 @@ def params_to_numpy(params: Any) -> Any:
     return _tree.tree_map(conv, params)
 
 
-def load_jax_checkpoint(path: str, cfg: ModelConfig, device: DeviceLike = None) -> Dict:
+InitFn = Callable[..., Dict]
+
+
+def load_jax_checkpoint(path: str, cfg: ModelConfig, device: DeviceLike = None,
+                        init_fn: InitFn = deepfwfm.init_params) -> Dict:
     """Params from an npz checkpoint of either package. Every parameter that
     ``cfg`` defines must be present with its shape; each takes the dtype the
-    port gives it (bf16 tables are cast back from f32)."""
-    template = deepfwfm.init_params(None, cfg, device="meta")
+    port gives it (bf16 tables are cast back from f32). ``init_fn`` is the
+    model family's ``init_params`` (an estimator's ``model_init``)."""
+    template = init_fn(None, cfg, device="meta")
     return ckpt.load_checkpoint(path, template, device=device)[0]
 
 
 def load_train_state(path: str, cfg: ModelConfig, tcfg: TrainConfig,
-                     device: DeviceLike = None) -> Tuple[Dict, Any, Dict]:
+                     device: DeviceLike = None,
+                     init_fn: InitFn = deepfwfm.init_params) -> Tuple[Dict, Any, Dict]:
     """(params, optimizer state, metadata) from an npz checkpoint of either
     package, for the optimizer that ``tcfg`` names."""
-    template = deepfwfm.init_params(None, cfg, device="meta")
+    template = init_fn(None, cfg, device="meta")
     return ckpt.load_checkpoint(path, template, make_optimizer(tcfg).init(template),
                                 device=device)
 
@@ -79,7 +90,7 @@ def load_quantized_artifact(path: str, cfg: ModelConfig, device: DeviceLike = No
     """A ``_dynamic_quant`` / ``_static_quant`` npz → :class:`QuantizedModel`.
     ``mode`` defaults to "static" when the artifact has activation scales."""
     device = resolve_device(device)
-    sections: Dict[str, Dict[str, torch.Tensor]] = {s: {} for s in _QUANT_SECTIONS}
+    sections: Dict[str, Dict[str, torch.Tensor]] = {s: {} for s in QUANT_SECTIONS}
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
         for key in data.files:
             section, name = key.split("::", 1)
@@ -92,3 +103,17 @@ def load_quantized_artifact(path: str, cfg: ModelConfig, device: DeviceLike = No
                           params_fp=trees["params_fp"] or {}, emb1_q=trees["emb1_q"],
                           emb2_q=trees["emb2_q"], deep_q=trees["deep_q"], act_scales=act,
                           ffm1_q=trees["ffm1_q"], ffm2_q=trees["ffm2_q"])
+
+
+def compact_from_numpy(cfg: ModelConfig, int8: bool, keep_in0: Sequence[int], params_fp: Any,
+                       emb1: Any, emb2: Any, deep: Any, device: DeviceLike = None
+                       ) -> CompactModel:
+    """A JAX ``CompactModel``'s parts (its four trees as numpy arrays, with
+    its ``int8`` flag and ``keep_in0``) → the port's :class:`CompactModel`
+    on ``device``. ``cfg`` is the port's config of the same model."""
+    device = resolve_device(device)
+    trees = {name: _tree.tree_map(lambda a: _to_tensor(a, device), tree)
+             for name, tree in (("params_fp", params_fp), ("emb1", emb1), ("emb2", emb2),
+                                ("deep", deep))}
+    return CompactModel(cfg=cfg, int8=bool(int8), keep_in0=tuple(int(i) for i in keep_in0),
+                        **trees)
