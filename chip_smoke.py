@@ -45,6 +45,14 @@ Phases, each printed on its own line:
      against the CPU's compact_forward; the report; request times dense against compact
  16. cli.kd.main and cli.nfm.main on tiny-criteo, one epoch each: finite metrics, a smaller
      student, NFM's logits on the card equal to the CPU's within 1e-5 of the largest
+ 17. sharded training: 4 ranks (spawned; nccl with a card each, else gloo on card 0) on a
+     (2 data, 2 model) mesh fit the flagship through a2a_grid, a2a and psum, 8 global batches
+     of 2,048 each, dropout on: the first step's loss within 1e-6 and its gradients within 1e-3
+     of each leaf's largest against the unsharded step; the logits after the fit against the
+     one-rank fit and each other (rtol 2e-4, atol 2e-5); the a2a_grid model gathered, saved,
+     loaded on one device with identical logits and served in fp32 and int8 (the fused tower
+     launched and held to its plain version); a pruned epoch's sparsity against one rank's;
+     ms per sharded step beside the unsharded one, and the bytes of each collective a step
 then one JSON line of per-kernel results, the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -862,10 +870,452 @@ def deploy_phases(args, cfg, card: str) -> dict:
     return {"launches_cli_path": q["dynamic"]["tower_launches"]}
 
 
+SHARD_MESH = (2, 2)          # (data, model): 4 ranks
+SHARD_STEPS = 8              # global batches of TRAIN_BATCH a fit
+SHARD_EXCHANGES = ("a2a_grid", "a2a", "psum")
+SHARD_TIMED = 5              # timed steps a exchange, after one more
+FIT_LOGIT_TOL = dict(rtol=2e-4, atol=2e-5)   # the dry run's: a sharded fit, its one-device twin
+FLIP_GRAD = 5e-2     # the first step's gradients against the one-rank step (one ReLU flip)
+FLIP_LOGIT = 5e-3    # the logits after SHARD_STEPS against the one-rank fit (Adam carries it)
+
+
+def step_times(fn, device, n: int) -> float:
+    """Median ms of ``n`` calls of ``fn`` after one: between CUDA events on the
+    card, by the host clock elsewhere (a rehearsal on the CPU)."""
+    fn()
+    times = []
+    for _ in range(n):
+        if device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sharded_rows(cfg, seed: int, sizes):
+    """The training rows of phase 17 and the rows its logits are read on.
+    ``sizes``: (global batch, steps, rows read)."""
+    batch, steps, n_eval = sizes
+    return (make_training_rows(cfg, seed + 30, batch * steps),
+            make_training_rows(cfg, seed + 31, n_eval)[:2])
+
+
+def sharded_train_config(seed: int, batch: int, exchange: str = "a2a_grid", mesh=(1, 1),
+                         **overrides):
+    from xsdeepfwfm_deprecated_torch.entry import flagship_train_config
+    return flagship_train_config(n_epochs=1, batch_size=batch, random_seed=seed,
+                                 mesh_data=mesh[0], mesh_model=mesh[1], exchange=exchange,
+                                 **overrides)
+
+
+PRUNE_17 = dict(prune=True, warm=0, sparse=0.9, prune_interval=4, prune_omega=2.0)
+
+
+def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
+                 profile: bool = False) -> dict:
+    """One rank of phase 17: for each exchange, the first step from the seeded
+    parameters against the unsharded step and against the same rows in the
+    ranks' pieces (both on rank 0, from the same parameters and dropout
+    numbers), a fit of SHARD_STEPS global batches, its logits, timed steps,
+    the bytes of one step's collectives and, with ``profile``, a profile of a
+    step; the a2a_grid model gathered and saved; a pruned fit. Every rank
+    returns the same logits; rank 0 also the comparisons."""
+    import logging
+    import os
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard
+    from xsdeepfwfm_deprecated_torch.parallel import mesh as mesh_mod
+    from xsdeepfwfm_deprecated_torch.train import trainer
+
+    quiet = logging.getLogger(f"chip_smoke.rank{rank}")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    batch = sizes[0]
+    (xi, xv, y), (xi_e, xv_e) = sharded_rows(cfg, seed, sizes)
+    to_dev = lambda b: {k: (torch.from_numpy(np.ascontiguousarray(v)).reshape(v.shape).to(device)
+                            if isinstance(v, np.ndarray) else v) for k, v in b.items()}
+    t_rank = time.perf_counter()
+    out = {"exchanges": {}}
+    mesh = mesh_mod.make_mesh(*SHARD_MESH, device=device)    # one set of groups for every fit
+    for exchange in SHARD_EXCHANGES:
+        t_exchange = time.perf_counter()
+        tc = sharded_train_config(seed, batch, exchange, SHARD_MESH)
+        res = out["exchanges"][exchange] = {}
+        # the first step, against the unsharded step from the same parameters
+        est = trainer.DeepFMEstimator(cfg, tc, logger=quiet, device=device)
+        est.mesh = mesh
+        full = est.init_params()
+        est._setup_mesh()
+        axes = est._batch_axes()
+        batch0 = next(batching.iter_batches(xi, xv, y, batch))
+        batch0["count"] = np.asarray(batch0["n_valid"], np.float32)
+        gen_of = lambda rows: BatchShard(torch.Generator(device=device).manual_seed(seed + 1),
+                                         batch, rows.start)
+        if rank == 0:
+            # the unsharded step; and the same rows in the ranks' pieces on one device,
+            # which run the tower's products at the ranks' shapes
+            whole = {k: v for k, v in batch0.items() if k != "count"}
+            ref_loss, ref_grads = trainer.loss_and_grads(
+                full, to_dev(whole), cfg, tc,
+                generator=torch.Generator(device=device).manual_seed(seed + 1))
+            n_pieces, pieces = mesh.axis_size(axes), []
+            for r in range(n_pieces):
+                rows = slice(r * batch // n_pieces, (r + 1) * batch // n_pieces)
+                piece = {k: (v[rows] if isinstance(v, np.ndarray) and v.ndim else v)
+                         for k, v in batch0.items()}
+                pieces.append(trainer.loss_and_grads(full, to_dev(piece), cfg, tc,
+                                                     generator=gen_of(rows)))
+            piece_loss = sum(float(p[0]) for p in pieces)
+            piece_grads = [sum(gs) for gs in zip(*(p[1] for p in pieces))]
+            del pieces
+        est._shard_state()
+        rows = mesh_mod.batch_rows(mesh, axes, batch)
+        gen = gen_of(rows)
+        local0 = to_dev(mesh_mod.shard_batch(batch0, mesh, axes, batch))
+        loss, grads = trainer.loss_and_grads(est.params, local0, cfg, tc, generator=gen,
+                                             forward_fn=est._forward_fn())
+        est._reducer()(grads)
+        loss = float(mesh.all_reduce(loss, axes))
+        names = [n for n, _ in _tree.named_leaves(est.params)]
+        full_grads = est._full(_tree.rebuild(est.params, dict(zip(names, grads))))
+        if rank == 0:
+            rel = lambda g, r: float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            res["first_loss"], res["first_loss_err"] = loss, abs(loss - float(ref_loss))
+            res["piece_loss_err"] = abs(loss - piece_loss)
+            res["grad_errs"] = {name: rel(g, r) for (name, g), r in
+                                zip(_tree.named_leaves(full_grads), ref_grads)}
+            res["piece_errs"] = {name: rel(g, r) for (name, g), r in
+                                 zip(_tree.named_leaves(full_grads), piece_grads)}
+            res["grad_err"] = max(res["grad_errs"].values())
+            res["piece_err"] = max(res["piece_errs"].values())
+            del ref_grads, piece_grads
+        del full, full_grads, grads, est
+        # the fit, its logits, and timed steps on its state
+        est = trainer.DeepFMEstimator(cfg, tc, logger=quiet, device=device)
+        est.mesh = mesh
+        t0 = time.perf_counter()
+        est.fit(xi, xv, y)
+        res["fit_s"] = time.perf_counter() - t0
+        res["losses"] = est.last_epoch_losses
+        res["shards"] = est._table_shards
+        res["logits"] = est._predict_logits(xi_e, xv_e)
+        if exchange == "a2a_grid":
+            path = os.path.join(workdir, "sharded_flagship")
+            t0 = time.perf_counter()
+            est.save(path, epoch=0)
+            res["save_s"] = time.perf_counter() - t0
+            gathered = est.gather_params()
+            if rank == 0:
+                one = trainer.DeepFMEstimator(cfg, sharded_train_config(seed, batch),
+                                              logger=quiet, device=device)
+                one.params = gathered
+                out["ckpt"], out["gathered_logits"] = path, one._predict_logits(xi_e, xv_e)
+            del gathered
+        # timed steps on the fit's state, then the collectives of one step
+        cycle = [to_dev(b) for b in est._local_batches(
+            batching.iter_batches(xi[:4 * batch], xv[:4 * batch], y[:4 * batch], batch))]
+        opt, reduce = trainer.make_optimizer(tc), est._reducer()
+        step_i = iter(range(10 ** 6))
+
+        def step():
+            return trainer.train_step(est.params, est.opt_state, cycle[next(step_i) % 4], cfg,
+                                      tc, opt, reduce=reduce, generator=gen,
+                                      forward_fn=est._forward_fn())
+
+        res["step_ms"] = step_times(step, device, SHARD_TIMED)
+        mesh.traffic.clear()
+        step()
+        res["traffic"] = list(mesh.traffic)
+        if profile and device.type == "cuda":
+            res["profile"] = profile_top(step, calls=3, top=6)
+        res["exchange_s"] = time.perf_counter() - t_exchange
+        del est, cycle
+    # a pruned epoch, sharded over the grid
+    est = trainer.DeepFMEstimator(cfg, sharded_train_config(seed, batch, "a2a_grid", SHARD_MESH,
+                                                            **PRUNE_17),
+                                  logger=quiet, device=device)
+    est.mesh = mesh
+    t0 = time.perf_counter()
+    est.fit(xi, xv, y)
+    out["prune_fit_s"] = time.perf_counter() - t0
+    out["prune_sparsity"] = est.epoch_sparsity
+    out["backend"] = est.mesh.backend
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def pieces_fit(cfg, tc, rows, n_pieces: int, device):
+    """The arithmetic of a sharded fit on one device: every step's loss and
+    gradients computed on ``n_pieces`` row pieces of the global batch, each
+    with its own generator advanced by the global batch's shape (as each
+    rank's), summed, then one optimizer update. Its tower products have the
+    ranks' shapes, which the one-rank fit's do not. Returns the parameters."""
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard
+    from xsdeepfwfm_deprecated_torch.train import trainer
+    xi, xv, y = rows
+    b, p = tc.batch_size, tc.batch_size // n_pieces
+    params = deepfwfm.init_params(torch.Generator().manual_seed(tc.random_seed), cfg,
+                                  device=device)
+    opt = trainer.make_optimizer(tc)
+    state = opt.init(params)
+    gens = [BatchShard(torch.Generator(device=device).manual_seed(tc.random_seed + 1), b, r * p)
+            for r in range(n_pieces)]
+    for batch in batching.iter_batches(xi, xv, y, b):
+        count = torch.tensor(float(batch["n_valid"]), device=device)
+        grads = None
+        for r in range(n_pieces):
+            piece = {k: torch.from_numpy(batch[k][r * p:(r + 1) * p]).to(device)
+                     for k in ("xi", "xv", "y", "mask")}
+            g = trainer.loss_and_grads(params, {**piece, "count": count}, cfg, tc,
+                                       generator=gens[r])[1]
+            grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+        opt.update(params, grads, state)
+    return params
+
+
+@torch.no_grad()
+def relu_flips(cfg, params, rows, seed: int, batch: int, n_pieces: int):
+    """Per hidden layer of the tower, in the first step's train-mode forward
+    (same dropout): the pre-activations whose sign differs between the whole
+    batch's products and ``n_pieces`` row pieces', and the largest difference
+    of a pre-activation."""
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops import embedding as emb_ops
+    from xsdeepfwfm_deprecated_torch.ops import mlp as mlp_ops
+    dev = params["bias"].device
+    xi, xv = (torch.from_numpy(a[:batch]).to(dev) for a in rows[:2])
+    x = emb_ops.packed_lookup(params["emb2"], deepfwfm.make_embedding_spec(cfg), xi, xv)
+    rates = (cfg.dropout_deep,) * (cfg.h_depth + 1)
+
+    def pre_activations(x_in, gen):
+        zs = []
+        mlp_ops.mlp_forward(params["deep"]["net_1"], x_in, dropout_rates=rates, train=True,
+                            generator=gen, activation=lambda z: zs.append(z) or torch.relu(z))
+        return zs
+
+    whole = pre_activations(x, torch.Generator(device=dev).manual_seed(seed + 1))
+    p = batch // n_pieces
+    parts = [pre_activations(x[r * p:(r + 1) * p], mlp_ops.BatchShard(
+        torch.Generator(device=dev).manual_seed(seed + 1), batch, r * p)) for r in range(n_pieces)]
+    out = []
+    for layer, z in enumerate(whole):
+        zp = torch.cat([part[layer] for part in parts])
+        out.append((int(((z > 0) != (zp > 0)).sum()), float((z - zp).abs().max())))
+    return out
+
+
+def sharded_phase(args, cfg, card: str) -> dict:
+    """Phase 17: sharded training on the card. Returns what the kernels line
+    reports of the int8 tower on this path."""
+    import logging
+    import os
+    import tempfile
+    import threading
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.compression.quantization import (
+        convert, quantized_lookup_serving)
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp, int8_mlp_reference
+    from xsdeepfwfm_deprecated_torch.parallel.launch import run_ranks
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.train import trainer
+
+    where = f"[{card}]"
+    t_phase = time.perf_counter()
+    quiet = logging.getLogger("chip_smoke.sharded")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    n_ranks = SHARD_MESH[0] * SHARD_MESH[1]
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= n_ranks else "gloo"
+    devices = [f"cuda:{r}" if backend == "nccl" else "cuda:0" for r in range(n_ranks)]
+    sizes = (TRAIN_BATCH, SHARD_STEPS, BATCH)
+    rows, (xi_e, xv_e) = sharded_rows(cfg, args.seed, sizes)
+    xi, xv, y = rows
+    tc_one = sharded_train_config(args.seed, TRAIN_BATCH)
+
+    # the one-rank reference: the same fit on the card, and its step time
+    one = trainer.DeepFMEstimator(cfg, tc_one, logger=quiet)
+    dev = one.device
+    flips = relu_flips(cfg, one.init_params(), rows, args.seed, TRAIN_BATCH, n_ranks)
+    one.fit(xi, xv, y)
+    one_logits = one._predict_logits(xi_e, xv_e)
+    cycle = list(batching.prefetch_to_device(batching.iter_batches(
+        xi[:4 * TRAIN_BATCH], xv[:4 * TRAIN_BATCH], y[:4 * TRAIN_BATCH], TRAIN_BATCH), dev))
+    opt = trainer.make_optimizer(one.tcfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    step_i = iter(range(10 ** 6))
+    one_ms = step_times(lambda: trainer.train_step(one.params, one.opt_state,
+                                                   cycle[next(step_i) % 4], cfg, one.tcfg, opt,
+                                                   generator=gen), dev, SHARD_TIMED)
+    del cycle
+
+    # the ranks run while this process computes the rest of the references (after
+    # the one-rank step was timed alone)
+    tmp = tempfile.TemporaryDirectory()
+    box: dict = {}
+
+    def launch():
+        try:
+            box["results"] = run_ranks(sharded_rank, n_ranks, backend=backend, devices=devices,
+                                       workdir=tmp.name, args=(args.seed, cfg, sizes, tmp.name,
+                                                               args.profile_sharded),
+                                       timeout_s=300.0)
+        except BaseException as e:    # re-raised below, in this thread
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    ranks = threading.Thread(target=launch)
+    ranks.start()
+    # the sharded fits' arithmetic on one device: 4 pieces (a2a family), 2 (psum)
+    piece_logits = {}
+    for n_pieces in (n_ranks, SHARD_MESH[0]):
+        one.params = pieces_fit(cfg, tc_one, rows, n_pieces, dev)
+        piece_logits[n_pieces] = one._predict_logits(xi_e, xv_e)
+    one_pruned = trainer.DeepFMEstimator(cfg, sharded_train_config(args.seed, TRAIN_BATCH,
+                                                                   **PRUNE_17),
+                                         logger=quiet).fit(xi, xv, y)
+    del one
+    refs_s = time.perf_counter() - t0
+    ranks.join()
+    ranks_s = time.perf_counter() - t0
+    if "error" in box:
+        raise box["error"]
+    results = box["results"]
+    r0 = results[0]
+    for exchange, res in r0["exchanges"].items():
+        for other in results[1:]:
+            check(np.array_equal(other["exchanges"][exchange]["logits"], res["logits"]),
+                  f"{exchange}: the ranks returned different logits")
+        check(len(res["losses"]) == SHARD_STEPS and bool(np.isfinite(res["losses"]).all()),
+              f"{exchange}: losses")
+        pieces = piece_logits[n_ranks if exchange != "psum" else SHARD_MESH[0]]
+        res["one_gap"] = float(np.abs(res["logits"] - one_logits).max())
+        res["piece_gap"] = float(np.abs(res["logits"] - pieces).max())
+        res["piece_ok"] = bool(np.allclose(res["logits"], pieces, **FIT_LOGIT_TOL))
+    logits = {ex: res["logits"] for ex, res in r0["exchanges"].items()}
+    cross = max(float(np.abs(logits[a] - logits[b]).max())
+                for a in logits for b in logits if a < b)
+    cross_ok = all(np.allclose(logits[a], logits[b], **FIT_LOGIT_TOL)
+                   for a in logits for b in logits if a < b)
+
+    # the gathered a2a_grid model: checkpoint, one-device estimator, serving
+    fresh = trainer.DeepFMEstimator(cfg, tc_one, logger=quiet)
+    fresh.load(r0["ckpt"])
+    loaded = fresh._predict_logits(xi_e, xv_e)
+    check(np.array_equal(loaded, r0["gathered_logits"]),
+          "the checkpoint's logits differ from the gathered model's")
+    check(np.allclose(loaded, logits["a2a_grid"], rtol=2e-5, atol=2e-6),
+          "the gathered model's logits differ from the sharded eval")
+    npz_bytes = os.path.getsize(r0["ckpt"] + ".npz")
+    int8_mlp.launches = 0
+    pred = Predictor(fresh.params, cfg)
+    fp32 = pred.logits(xi_e, xv_e)
+    np.testing.assert_allclose(fp32, loaded, rtol=TOL, atol=TOL)
+    pred_q = Predictor(convert(_tree.tree_map(lambda t: t.cpu(), fresh.params), cfg, "dynamic"))
+    int8 = pred_q.logits(xi_e, xv_e)
+    launches = int8_mlp.launches
+    check(launches >= 1 and bool(np.isfinite(int8).all()), f"int8 tower launches {launches}")
+    qm = pred_q._model
+    spec = deepfwfm.make_embedding_spec(cfg)
+    with torch.inference_mode():
+        x = quantized_lookup_serving(qm.emb2_q, spec, torch.from_numpy(xi_e).to(dev),
+                                     torch.from_numpy(xv_e).to(dev)).reshape(len(xi_e), -1)
+        layers, fc = qm.fused_tower
+        tower_err = float((int8_mlp(x.contiguous(), layers, fc)
+                           - int8_mlp_reference(x.contiguous(), layers, fc)).abs().max())
+    check(tower_err <= TOL, f"int8_mlp vs plain version on the sharded model: {tower_err}")
+    sp_one, sp_sharded = one_pruned.epoch_sparsity[-1], r0["prune_sparsity"][-1]
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+
+    phase(17, f"sharded training: {n_ranks} ranks on a {SHARD_MESH[0]}x{SHARD_MESH[1]} mesh, "
+              f"backend {r0['backend']}, ranks on {sorted(set(devices))}, the flagship at "
+              f"global B={TRAIN_BATCH}, Adam + L2, dropout on, {SHARD_STEPS} steps an exchange; "
+              f"{phase_s:.1f} s in all, {ranks_s:.1f} s of it in the ranks: "
+              f"{ranks_s - r0['rank_s']:.1f} s to start them (CUDA init included; the "
+              f"one-device references took {refs_s:.1f} s meanwhile), "
+              + ", ".join(f"{ex} {res['exchange_s']:.1f} s" for ex, res in r0["exchanges"].items())
+              + f", the pruned fit {r0['prune_fit_s']:.1f} s {where}")
+    print("  the first step's tower pre-activations, the whole batch's products against "
+          f"{n_ranks} row pieces' (same dropout): "
+          + "; ".join(f"layer {i}: {n} of {TRAIN_BATCH * cfg.deep_nodes} change sign, largest "
+                      f"difference {gap:.2e}" for i, (n, gap) in enumerate(flips)) + f" {where}")
+    for exchange, res in r0["exchanges"].items():
+        by = {}
+        for kind, group, size, n_bytes in res["traffic"]:
+            by[(kind, group, size)] = by.get((kind, group, size), 0) + n_bytes
+        moved = ", ".join(f"{k} over the {g} group ({n} ranks) {b} B"
+                          for (k, g, n), b in sorted(by.items()))
+        worst = sorted(res["grad_errs"].items(), key=lambda kv: -kv[1])[:3]
+        print(f"  {exchange}: table shards {res['shards']}; first step: loss "
+              f"{res['first_loss']:.6f}, vs the unsharded step within {res['first_loss_err']:.2e}, gradients within "
+              f"{res['grad_err']:.2e} of each leaf's largest (worst: "
+              + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+              + f"); vs the same rows in the ranks' pieces on one device: loss within "
+              f"{res['piece_loss_err']:.2e}, gradients within {res['piece_err']:.2e}. After "
+              f"{SHARD_STEPS} steps, logits of {len(xi_e)} rows: vs the pieces fit on one device "
+              f"max |diff| {res['piece_gap']:.3e}, vs the one-rank fit {res['one_gap']:.3e}; fit "
+              f"{res['fit_s']:.2f} s; train step {res['step_ms']:.3f} ms between CUDA events "
+              f"(median of {SHARD_TIMED}; one rank: {one_ms:.3f} ms); collectives a step: "
+              f"{moved} {where}")
+        if "profile" in res:
+            wall, busy, top = res["profile"]
+            print(f"    profile of rank 0's step: {wall:.3f} ms under the profiler, device "
+                  f"operations {busy:.3f} ms ({busy / wall:.0%} busy); the largest: "
+                  + "; ".join(f"{key} {ms:.4f} ms x{n:g}" for key, ms, n in top))
+    if r0["backend"] == "gloo":
+        print(f"  the ranks share one card over gloo: every collective is staged through the "
+              f"host, so these times measure that setup, not NVLink {where}")
+    print(f"  logits across the exchanges max |diff| {cross:.3e}; a2a_grid gathered and saved "
+          f"({npz_bytes} B, {r0['exchanges']['a2a_grid']['save_s']:.2f} s), loaded on one "
+          f"device with identical logits; Predictor fp32 vs the estimator max |diff| "
+          f"{float(np.abs(fp32 - loaded).max()):.3e}; int8 tower launches {launches}, int8 vs "
+          f"fp32 logits {float(np.abs(int8 - fp32).max()):.3e}, int8_mlp vs plain version "
+          f"{tower_err:.3e}; pruned epoch sparsity sharded {sp_sharded:.4f}% vs one rank "
+          f"{sp_one:.4f}% {where}")
+    # A ReLU input within rounding of zero takes the other side in the whole batch's products
+    # than in the ranks' (the flips line), which moves one example's share of a tower
+    # gradient: the one-rank step is held to FLIP_GRAD of each leaf's largest, the same rows
+    # in the ranks' pieces to 1e-5. Adam carries such a difference into every later step,
+    # so the fit is held to the pieces fit at the dry run's tolerance and to the one-rank fit
+    # at FLIP_LOGIT
+    for exchange, res in r0["exchanges"].items():
+        check(res["first_loss_err"] <= 1e-6 and res["piece_loss_err"] <= 1e-6,
+              f"{exchange}: the first step's loss: {res['first_loss_err']} from the unsharded "
+              f"step's, {res['piece_loss_err']} from the pieces'")
+        check(res["piece_err"] <= 1e-5 and res["grad_err"] <= FLIP_GRAD,
+              f"{exchange}: gradients {res['piece_err']} from the pieces', {res['grad_err']} "
+              f"from the unsharded step's, of each leaf's largest")
+        check(res["piece_ok"] and res["one_gap"] <= FLIP_LOGIT,
+              f"{exchange}: logits {res['piece_gap']} from the pieces fit's (rtol 2e-4 atol "
+              f"2e-5), {res['one_gap']} from the one-rank fit's (atol {FLIP_LOGIT})")
+    check(cross_ok, f"logits across the exchanges differ by {cross}")
+    check(sp_one > 0 and abs(sp_one - sp_sharded) <= 0.01,
+          f"pruned sparsity: sharded {sp_sharded}% against one rank {sp_one}%")
+    return {"launches_sharded_path": launches, "max_abs_err_sharded": tower_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=100, help="timed calls per kernel")
+    ap.add_argument("--profile-sharded", action="store_true",
+                    help="profile a step of each exchange in phase 17 (the profiler's start on "
+                         "every rank adds tens of seconds to the phase)")
     args = ap.parse_args(argv)
 
     # ---- 1. device
@@ -1113,12 +1563,16 @@ def main(argv=None) -> int:
     # ---- 12-16. the deploy path through the CLIs
     deployed = deploy_phases(args, cfg, card)
 
+    # ---- 17. sharded training
+    sharded = sharded_phase(args, cfg, card)
+
     # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
         "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained, **deployed,
+        **sharded,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": l_ms,
         "layered_ms": layered_ms, "layered_max_abs_err": layered_err,

@@ -152,6 +152,26 @@ def test_deploy_entry_points_default_to_the_card(tmp_path, monkeypatch):
             call()
 
 
+def test_sharded_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """The sharding slice's entry points: ``dryrun_multichip``, ``cli.main_all``
+    with mesh flags and the rank setup go to the card unless asked for the CPU."""
+    from xsdeepfwfm_deprecated_torch.cli import main_all
+    from xsdeepfwfm_deprecated_torch.entry import dryrun_multichip
+    from xsdeepfwfm_deprecated_torch.parallel.mesh import local_rank_setup
+    assert local_rank_setup("cpu") == (torch.device("cpu"), "gloo")
+    assert {"xsdeepfwfm_deprecated_torch.parallel.mesh",
+            "xsdeepfwfm_deprecated_torch.parallel.embedding_sharding",
+            "xsdeepfwfm_deprecated_torch.data.sharded_input"} <= set(_port_modules())
+    if torch.cuda.is_available():
+        assert local_rank_setup()[0].type == "cuda"
+        return
+    monkeypatch.chdir(tmp_path)
+    for call in (lambda: dryrun_multichip(2), local_rank_setup,
+                 lambda: main_all.main(["-dataset", "tiny-criteo", "-mesh_data", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: chip_smoke.py would run in full")

@@ -440,9 +440,12 @@ def _count(est):
 
 
 def test_mesh_flags_raise_until_the_sharding_slice():
+    """A mesh larger than 1x1 trains sharded over ranks that the caller starts
+    (``tests/test_torch_sharding.py``); without them ``fit`` says how to
+    launch instead of training on one device."""
     _, tcfg = _cfgs(use_fwfm=True, use_deep=True)
     est = TT.DeepFMEstimator(tcfg, TTrain(mesh_model=2), logger=QUIET, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(ValueError, match="torchrun"):
         est.fit(*fit_data(40, seed=6))
     # run_benchmark no longer waits for serving/benchmark.py: it serves a fitted estimator
     est = TT.DeepFMEstimator(tcfg, TTrain(n_epochs=1, batch_size=B), logger=QUIET, device="cpu")

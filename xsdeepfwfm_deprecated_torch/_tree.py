@@ -38,6 +38,17 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """``tree_map`` whose ``fn`` also takes the leaf's name."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
 def rebuild(template: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
     """``template``'s structure (empty containers included) with each leaf
     replaced by ``flat[its name]``."""

@@ -11,20 +11,34 @@ Example::
 
 It runs on the CUDA device; ``-use_cuda`` is a compatibility flag that
 nothing reads. ``main(argv, device="cpu")`` runs it on the CPU.
+
+Sharded, one process per rank (``parallel/mesh.py``)::
+
+    torchrun --nproc_per_node 4 -m xsdeepfwfm_deprecated_torch.cli.main_all \
+        -dataset tiny-criteo -mesh_data 2 -mesh_model 2 -exchange a2a_grid ...
+
+Each rank takes card ``LOCAL_RANK`` over nccl when the host has a card for
+each; with fewer cards the ranks share them over gloo. Every rank fits; rank
+0 logs, writes the checkpoints, reloads the last one and runs the benchmark
+on its card, and the other ranks return their estimator after the fit.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import random
 from datetime import datetime
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..config import get_parser
 from ..data.datasets import get_dataset
 from ..device import DeviceLike
 from ..models.factory import get_model
+from ..parallel.mesh import init_distributed, local_rank_setup
 from ..train.recovery import fit_with_recovery
 from ..utils.debug import nan_debugging
 from ..utils.logging import get_logger
@@ -33,6 +47,12 @@ from ..utils.logging import get_logger
 def main(argv=None, device: DeviceLike = None, data_dir: str = None):
     """``data_dir`` replaces the repo's ``data/`` as the datasets' root."""
     pars = get_parser().parse_args(argv)
+    if pars.mesh_data != 1 or pars.mesh_model != 1:
+        device, backend = local_rank_setup(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        init_distributed(backend)
+    rank = dist.get_rank() if dist.is_initialized() else 0
 
     np.random.seed(pars.random_seed)
     random.seed(pars.random_seed)
@@ -45,9 +65,19 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None):
     if pars.qr_emb:
         save_model_name += "_qr"
     save_model_name += "_" + datetime.now().strftime("%Y%m%d%H%M%S")
+    if dist.is_initialized():       # the ranks take rank 0's name
+        names = [save_model_name]
+        dist.broadcast_object_list(names, src=0,
+                                   device=device if dist.get_backend() == "nccl" else None)
+        save_model_name = names[0]
     os.makedirs(os.path.dirname(save_model_name), exist_ok=True)
 
-    logger = get_logger(os.path.basename(save_model_name))
+    if rank == 0:
+        logger = get_logger(os.path.basename(save_model_name))
+    else:
+        logger = logging.getLogger(f"{__name__}.rank{rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
     logger.info(pars)
 
     logger.info("GET DATASET")
@@ -71,6 +101,8 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None):
                               max_restarts=pars.auto_resume, **fit_kwargs)
         else:
             model.fit(*fit_args, save_path=save_model_name, **fit_kwargs)
+    if rank != 0:       # rank 0 measures the model it wrote
+        return model
 
     # reload-for-measurement (reference main_all.py:56-63)
     model2 = get_model(field_size=field_size, feature_sizes=train_dict["feature_sizes"],

@@ -19,18 +19,27 @@ elements; above it a bisection of the value range in 40 passes over the
 array. The whole search stays on the tensor's device: the halvings choose
 with ``torch.where`` on 0-d tensors, so a refresh reads no value back to
 the host.
+
+On a mesh (``prune_params(..., mesh=...)``) the dense table is this rank's
+row block, and its threshold is still global over the real rows: the
+bisection all-reduces its maximum (MAX) and each halving's count (SUM) over
+the table's ranks, so it is the unsharded search to the bit; below
+``BISECT_SIZE`` the real rows are gathered and the quantile taken as
+unsharded. Every other leaf is identical on every rank and pruned locally.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from .. import _tree
 from ..config import ModelConfig
 from ..device import exact_div
 from ..models import deepfwfm
+from ..parallel.mesh import MODEL_AXIS, Axes, Mesh
 
 BISECT_SIZE = 1 << 14
 BISECT_ITERS = 40
@@ -39,8 +48,16 @@ Target = Union[float, torch.Tensor]
 
 
 def _bisect_threshold(absw: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Halve [lo, hi] on the pruned fraction ``mean(|w| < mid)`` against the
-    target, in LOG-magnitude space.
+    """:func:`_bisect` over one array of magnitudes."""
+    return _bisect(lambda v: torch.count_nonzero(absw < v), absw.max(), absw.numel(), target)
+
+
+def _bisect(count_below: Callable[[torch.Tensor], torch.Tensor], amax: torch.Tensor, n: int,
+            target: torch.Tensor) -> torch.Tensor:
+    """Halve [lo, hi] on the pruned fraction ``count_below(mid) / n`` against
+    the target, in LOG-magnitude space. ``amax`` is the largest magnitude;
+    ``count_below(v)`` counts the magnitudes below ``v`` (across the blocks of
+    a row-sharded table, too: integer counts make the search the same).
 
     Embedding rows that no batch samples decay under Adam+L2 by a few percent
     a step (L2 is their only gradient and Adam normalizes it), so after a
@@ -53,13 +70,12 @@ def _bisect_threshold(absw: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     The pruned fraction is ``count_nonzero / n``: an integer count, exact at
     any size, where a float32 mean of 0/1 values is exact only up to 2^24
     elements."""
-    hi = absw.max().clamp(min=1e-30).log()
+    hi = amax.clamp(min=1e-30).log()
     lo = hi + (-120.0 * 0.6931472)      # hi * 2^-120
-    n = float(absw.numel())
     for _ in range(BISECT_ITERS):
         mid = 0.5 * (lo + hi)
-        below = torch.count_nonzero(absw < mid.exp()).to(torch.float32)
-        go_up = exact_div(below, n) < target
+        below = count_below(mid.exp()).to(torch.float32)
+        go_up = exact_div(below, float(n)) < target
         lo, hi = torch.where(go_up, mid, lo), torch.where(go_up, hi, mid)
     return (0.5 * (lo + hi)).exp()
 
@@ -73,6 +89,34 @@ def magnitude_threshold(w: torch.Tensor, target_sparsity: Target) -> torch.Tenso
     absw = w.detach().reshape(-1).abs().to(torch.float32)
     thr = (_bisect_threshold(absw, target) if absw.numel() > BISECT_SIZE
            else torch.quantile(absw, target))
+    return torch.where(target > 0.0, thr, torch.zeros_like(thr))
+
+
+def _sharded_table_threshold(tables: Dict[str, torch.Tensor], target: torch.Tensor,
+                             dense_rows: int, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    """:func:`magnitude_threshold` over the real rows of a dense table whose
+    row blocks are spread over the ranks of ``axes``, together with the
+    replicated QR tables, as if the whole table were on this rank."""
+    block = tables["dense"]
+    real = min(max(dense_rows - mesh.axis_index(axes) * block.shape[0], 0), block.shape[0])
+    own = block[:real].reshape(-1).abs().to(torch.float32)
+    rest = torch.cat([t.reshape(-1).abs().to(torch.float32) for k, t in tables.items()
+                      if k != "dense"] + [own.new_zeros(0)])
+    n = dense_rows * block.shape[1] + rest.numel()
+    if n <= BISECT_SIZE:
+        full = mesh.all_gather(block, axes).reshape(-1, block.shape[1])[:dense_rows]
+        return magnitude_threshold(torch.cat([full.reshape(-1).to(torch.float32), rest]), target)
+    target = target.clamp(0.0, 1.0)
+
+    def count_below(v: torch.Tensor) -> torch.Tensor:
+        return (mesh.all_reduce(torch.count_nonzero(own < v), axes)
+                + torch.count_nonzero(rest < v))
+
+    amax = mesh.all_reduce(own.max() if own.numel() else own.new_zeros(()), axes,
+                           op=dist.ReduceOp.MAX)
+    if rest.numel():
+        amax = torch.maximum(amax, rest.max())
+    thr = _bisect(count_below, amax, n, target)
     return torch.where(target > 0.0, thr, torch.zeros_like(thr))
 
 
@@ -95,7 +139,8 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
                  emb_r: float = 1.0, emb_corr: float = 1.0,
                  prune_fm: bool = True, prune_deep: bool = True,
                  prune_r: bool = False, dense_rows: int = 0,
-                 structured_deep: bool = False) -> Dict:
+                 structured_deep: bool = False, mesh: Optional[Mesh] = None,
+                 table_axes: Axes = MODEL_AXIS) -> Dict:
     """One prune refresh over the parameter tree. Returns the pruned tree,
     with every key in the input's order (the optimizer state is matched to the
     parameters by leaf order); the input's tensors are left as they were.
@@ -103,6 +148,10 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
     ``dense_rows``: true row count of the packed ``dense`` table, for a table
     that was padded with zero rows: the threshold is then taken over the real
     rows only.
+
+    ``mesh``: the ``dense`` tables are this rank's row blocks over the ranks
+    of ``table_axes`` (``dense_rows`` then required); the embedding threshold
+    is the whole table's. Every rank of the mesh calls it together.
 
     ``structured_deep`` prunes whole hidden units by the L2 norm of their
     weight column, on the same schedule, and zeroes the unit's bias with it,
@@ -113,11 +162,14 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
 
     if prune_fm and "emb2" in params:
         tables = params["emb2"]
-        flat = torch.cat([(t[:dense_rows] if k == "dense" and dense_rows
-                           and t.shape[0] > dense_rows else t).reshape(-1).to(torch.float32)
-                          for k, t in tables.items()])
-        thr = magnitude_threshold(flat, adaptive * emb_r)
-        del flat
+        if mesh is not None:
+            thr = _sharded_table_threshold(tables, adaptive * emb_r, dense_rows, mesh, table_axes)
+        else:
+            flat = torch.cat([(t[:dense_rows] if k == "dense" and dense_rows
+                               and t.shape[0] > dense_rows else t).reshape(-1).to(torch.float32)
+                              for k, t in tables.items()])
+            thr = magnitude_threshold(flat, adaptive * emb_r)
+            del flat
         params["emb2"] = {k: apply_threshold(t, thr) for k, t in tables.items()}
 
     if prune_deep:

@@ -6,7 +6,8 @@ Same fields, defaults, derived properties, checks and flags as
 for one package builds the same model and the same run in the other. Flags
 that only choose a TPU layout or dispatch form (``-steps_per_call``,
 ``-table_layout``, ``-mesh_table_layout``) are accepted and change no result
-here; the mesh flags are kept for the sharding slice.
+here. ``-mesh_data``/``-mesh_model``/``-exchange`` shard a fit over ranks
+started by ``torchrun`` (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -148,8 +149,8 @@ class TrainConfig:
                                      # table, which gives the same parameters
     eval_train_rows: int = 0         # cap rows for the per-epoch train-metric eval
                                      # (0 = the full train set)
-    mesh_data: int = 1               # data-parallel axis; only 1 until the sharding slice
-    mesh_model: int = 1              # model-parallel axis; only 1 until the sharding slice
+    mesh_data: int = 1               # data-parallel mesh axis (0: the ranks model leaves)
+    mesh_model: int = 1              # model-parallel mesh axis: the tables' row shards
     exchange: str = "a2a_grid"       # a2a_grid | a2a | psum: lookup exchange on a mesh
     mesh_table_layout: str = "flat"  # flat | super: accepted, as table_layout
     early_stopping: bool = False
@@ -231,12 +232,14 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-table_layout", default="super", type=str, choices=["super", "flat"],
                    help="Accepted; changes no result (the port trains the flat table)")
     p.add_argument("-mesh_data", default=1, type=int,
-                   help="Data-parallel mesh axis size (only 1 until the sharding slice)")
+                   help="Data-parallel mesh axis size (0: all the ranks -mesh_model leaves); "
+                        "a mesh larger than 1x1 needs one process per rank, started by torchrun")
     p.add_argument("-mesh_model", default=1, type=int,
-                   help="Model-parallel mesh axis size (only 1 until the sharding slice)")
+                   help="Model-parallel mesh axis size: row shards of the embedding tables")
     p.add_argument("-exchange", default="a2a_grid", type=str,
                    choices=["a2a_grid", "a2a", "psum"],
-                   help="Sharded embedding-lookup exchange (used by the sharding slice)")
+                   help="Sharded embedding-lookup exchange: a2a_grid (tables over every rank), "
+                        "a2a (over -mesh_model, batch over both axes) or psum")
     p.add_argument("-mesh_table_layout", default="flat", type=str, choices=["flat", "super"],
                    help="Accepted; changes no result")
     p.add_argument("-eval_train_rows", default=0, type=int,

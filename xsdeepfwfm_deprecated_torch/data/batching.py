@@ -69,7 +69,7 @@ def prefetch_to_device(batch_iter: Iterable[Dict], device: torch.device,
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray):
-                t = torch.from_numpy(np.ascontiguousarray(v))
+                t = torch.from_numpy(np.ascontiguousarray(v)).reshape(v.shape)   # 0-d stays 0-d
                 v = t.pin_memory().to(device, non_blocking=True) if pinned else t.to(device)
             out[k] = v
         queue.append(out)

@@ -9,7 +9,8 @@ is the same tower with fake-quant on input, weights and activations.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -17,13 +18,31 @@ from ..device import scaled_normal
 from .quantized import fake_quant_per_tensor
 
 
-def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+@dataclass(frozen=True)
+class BatchShard:
+    """The dropout generator of one shard of a global batch: :func:`dropout`
+    draws the numbers of the whole ``batch`` rows and keeps the rows from
+    ``start`` on. So every rank of a sharded fit advances the generator
+    alike, and its masks are those of the unsharded run's rows, as JAX's
+    threefry bits do not depend on the sharding."""
+
+    generator: torch.Generator
+    batch: int
+    start: int
+
+
+def dropout(generator: Union[torch.Generator, BatchShard, None], x: torch.Tensor, rate: float,
             train: bool) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-p) at train time). The keep mask is
     drawn from ``generator`` on its own device, then moved to ``x``'s."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    if isinstance(generator, BatchShard):
+        gen, start = generator.generator, generator.start
+        u = torch.rand((generator.batch,) + tuple(x.shape[1:]), generator=gen,
+                       device=gen.device)[start:start + x.shape[0]]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
     keep = (u < 1.0 - rate).to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 

@@ -20,20 +20,47 @@ stay there and are fetched once per epoch. Inside a
 ``utils.debug.nan_debugging`` block every step's loss is checked with
 ``isfinite``, which does read it.
 
+A ``mesh_data x mesh_model`` mesh larger than 1x1 trains sharded
+(``:227-336, 419-462, 671-722, 773-779``), one process per rank
+(``parallel/mesh.py`` says how the ranks are laid out and started): the
+dense tables row-sharded and looked up through the configured exchange
+(``parallel/embedding_sharding.py``), each rank stepping on its rows of
+every global batch. What JAX's compiler does implicitly is written out:
+
+* the loss of a rank is ``sum(elem * mask)`` over its rows divided by the
+  global batch's count of real rows, so the losses of the ranks sum to the
+  global mean;
+* gradients are summed over the ranks with other rows of the batch
+  (``parallel.mesh.reduce_gradients``) before the optimizer adds L2, and the
+  optimizer then runs on each rank's own leaves;
+* dropout draws the global batch's numbers and keeps the rank's rows
+  (``ops.mlp.BatchShard``), so a sharded fit trains the model of the
+  unsharded one;
+* the prune refresh takes the table threshold over every block's real
+  rows; eval gathers the logits, so every rank returns them all; ``save``
+  gathers and unpads the tree and rank 0 writes it; ``load`` and
+  ``resume_from`` read the whole checkpoint on every rank, which keeps its
+  blocks, into any mesh shape.
+
 Not ported, because they are dispatch and layout forms with the same
 results: the K-steps-per-dispatch scan (``:88-159``), the scanned eval
-(``:171-195``) and super-row table packing. ``steps_per_call > 1`` runs plain
-per-batch steps on the same prune schedule, and ``table_layout="super"``
-trains the flat table. A mesh other than 1x1 raises until the sharding slice.
+(``:171-195``) and super-row table packing, for one device and on a mesh.
+``steps_per_call > 1`` runs plain per-batch steps on the same prune
+schedule, and ``table_layout="super"`` and ``mesh_table_layout="super"``
+train the flat table. Knowledge distillation and quantization-aware training
+on a mesh are not ported (their softmax and activation scale span the whole
+batch) and raise.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import _tree
@@ -44,6 +71,9 @@ from ..config import ModelConfig, TrainConfig
 from ..data import batching
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
+from ..ops.mlp import BatchShard
+from ..parallel import embedding_sharding as es
+from ..parallel import mesh as mesh_mod
 from ..serving.benchmark import run_benchmark
 from ..serving.predictor import Predictor
 from ..utils import debug
@@ -149,14 +179,18 @@ def batch_loss(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig, 
                forward_fn: ForwardFn = deepfwfm.forward) -> torch.Tensor:
     """The train-mode loss of one batch: the masked mean BCE (the per-batch
     ``binary_cross_entropy_with_logits`` mean on an unpadded batch), or the
-    KD loss when the teacher's logits are given."""
+    KD loss when the teacher's logits are given. A rank's shard of a global
+    batch carries ``batch["count"]``, the global batch's number of real rows
+    as a 0-d tensor: its masked sum divided by that, so that the ranks'
+    losses sum to the global mean."""
     logits = forward_fn(params, batch["xi"], batch["xv"], mcfg, train=True, generator=generator)
     y, mask = batch["y"], batch["mask"]
     if teacher_logits is not None:
         return kd_loss(logits, teacher_logits, y, mask, alpha=tcfg.kd_alpha,
                        temperature=tcfg.kd_temperature)
     elem = F.binary_cross_entropy_with_logits(logits, y, reduction="none")
-    return (elem * mask).sum() / mask.sum().clamp(min=1.0)
+    count = batch["count"] if "count" in batch else mask.sum().clamp(min=1.0)
+    return (elem * mask).sum() / count
 
 
 def loss_and_grads(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig,
@@ -174,10 +208,16 @@ def loss_and_grads(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConf
 
 
 def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
-               tcfg: TrainConfig, optimizer: Optimizer, **loss_kw) -> torch.Tensor:
+               tcfg: TrainConfig, optimizer: Optimizer,
+               reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+               **loss_kw) -> torch.Tensor:
     """One optimizer step, in place on ``params`` and ``opt_state``. Returns
-    the loss as a 0-d tensor on the device."""
+    the loss as a 0-d tensor on the device. ``reduce`` sums the gradients
+    over the ranks of a sharded fit, in place, before the optimizer (and its
+    L2) sees them."""
     loss, grads = loss_and_grads(params, batch, mcfg, tcfg, **loss_kw)
+    if reduce is not None:
+        reduce(grads)
     optimizer.update(params, grads, opt_state)
     return loss
 
@@ -185,9 +225,13 @@ def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
 class DeepFMEstimator:
     """sklearn-estimator-shaped wrapper (the reference ``DeepFMs`` surface).
 
-    ``device=None`` means the CUDA device, and raises when there is none.
-    A subclass swaps the model family by overriding ``model_forward`` /
-    ``model_init`` / ``model_spec``.
+    ``device=None`` means the CUDA device, and raises when there is none; a
+    rank of a sharded fit passes its own (``cuda:{local_rank}``, ``cuda:0``
+    for ranks that share a card, or ``cpu``). A subclass swaps the model
+    family by overriding ``model_forward`` / ``model_init`` / ``model_spec``.
+
+    On a mesh (``mesh_data x mesh_model > 1``), ``fit``, ``save``, ``load``,
+    the predictions and the reports are collective: every rank calls them.
     """
 
     model_forward = staticmethod(deepfwfm.forward)
@@ -211,22 +255,24 @@ class DeepFMEstimator:
         self.best_params: Optional[Dict] = None   # filled by fit(keep_best=True)
         self.best_epoch: int = -1
         self.best_valid_auc: float = float("nan")
+        # the mesh of a sharded fit (set by _setup_mesh; None: one device)
+        self.mesh: Optional[mesh_mod.Mesh] = None
+        self._lookup_fn = None      # the exchange's lookup, bound into model_forward
+        self._table_axes: mesh_mod.Axes = mesh_mod.MODEL_AXIS
+        self._table_shards = 1
+        self._batch_both = False
+        self._blocks = False        # params and optimizer state hold this rank's row blocks
 
     # ------------------------------------------------------------------ util
 
     def _log(self, msg: str):
-        self.logger.info(msg)
+        if not (dist.is_initialized() and dist.get_rank() != 0):   # rank 0 logs
+            self.logger.info(msg)
 
     def init_params(self, seed: Optional[int] = None) -> Dict:
         gen = torch.Generator().manual_seed(self.tcfg.random_seed if seed is None else seed)
         self.params = type(self).model_init(gen, self.mcfg, device=self.device)
         return self.params
-
-    def _require_single_device(self):
-        if self.tcfg.mesh_data != 1 or self.tcfg.mesh_model != 1:
-            raise NotImplementedError(
-                f"mesh_data={self.tcfg.mesh_data}, mesh_model={self.tcfg.mesh_model}: sharded "
-                "training comes with the sharding slice (ROADMAP.md queue 1); use 1 and 1")
 
     def _log_counts(self, counts: Dict[str, int], word: str = "", indent: str = "") -> None:
         head = f"{indent}Number of {word}"
@@ -237,6 +283,104 @@ class DeepFMEstimator:
         if self.mcfg.use_deep:
             self._log(f"{head}DNN parameters: {counts['dnn']:,}")
         self._log(f"{head}total parameters: {counts['total']:,}")
+
+    # --------------------------------------------------------------- sharding
+
+    def _setup_mesh(self) -> Optional[mesh_mod.Mesh]:
+        """The ``(data, model)`` mesh and the lookup exchange of the
+        TrainConfig (``-mesh_data``/``-mesh_model``/``-exchange``); None for
+        1x1. Raises a ``ValueError`` that says how to launch when the process
+        group is missing or has another number of ranks."""
+        tc = self.tcfg
+        if tc.mesh_data == 1 and tc.mesh_model == 1:
+            self.mesh, self._lookup_fn = None, None
+            self._table_axes, self._table_shards, self._batch_both = mesh_mod.MODEL_AXIS, 1, False
+            return None
+        data = None if tc.mesh_data == 0 else tc.mesh_data
+        mesh = self.mesh
+        if mesh is None or mesh.model != tc.mesh_model or data not in (None, mesh.data):
+            mesh = mesh_mod.make_mesh(data=data, model=tc.mesh_model, device=self.device)
+        # one resolver for exchange -> (lookup, table layout, batch layout): a2a_grid
+        # shards the tables over the whole grid, a2a and psum over `model`, and
+        # both of these fall back to pure data parallelism when model == 1
+        (self._lookup_fn, self._table_axes, self._table_shards,
+         self._batch_both) = es.setup_exchange(mesh, type(self).model_spec(self.mcfg),
+                                               self._exchange())
+        self.mesh = mesh
+        return mesh
+
+    def _exchange(self) -> str:
+        return self.tcfg.exchange
+
+    def _batch_over_both_axes(self) -> bool:
+        """The all-to-all exchanges shard the batch over both mesh axes."""
+        return self._lookup_fn is not None and self._batch_both
+
+    def _n_batch_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.axis_size(self._batch_axes())
+
+    def _batch_axes(self) -> mesh_mod.Axes:
+        return mesh_mod.batch_axes(self._batch_over_both_axes())
+
+    def _shard_state(self) -> None:
+        """Pad the dense tables to the shard count and keep this rank's row
+        blocks, of the parameters and of the optimizer state."""
+        if self._table_shards > 1:
+            self.params = mesh_mod.shard_params(self.params, self.mesh, self._table_axes)
+            if self.opt_state is not None:
+                self.opt_state = mesh_mod.shard_params(self.opt_state, self.mesh,
+                                                       self._table_axes)
+            self._blocks = True
+
+    def _full(self, tree: Any) -> Any:
+        """``tree`` (parameters or optimizer state) whole and unpadded: as it
+        is unless it holds row blocks, which are gathered from every rank
+        (collective)."""
+        if not self._blocks or tree is None:
+            return tree
+        return mesh_mod.gather_params(tree, self.mesh, self._table_axes,
+                                      type(self).model_spec(self.mcfg).dense_rows)
+
+    def gather_params(self) -> Dict:
+        """The whole, unpadded parameter tree on every rank (collective on a
+        mesh): what ``save`` writes and the ``Predictor`` serves."""
+        return self._full(self.params)
+
+    def _forward_fn(self) -> ForwardFn:
+        """``model_forward`` with the exchange's lookup bound, on a mesh."""
+        fwd = type(self).model_forward
+        return partial(fwd, lookup_fn=self._lookup_fn) if self._lookup_fn is not None else fwd
+
+    def _reducer(self) -> Callable[[List[torch.Tensor]], None]:
+        """The gradient reduction of this rank's sharded step: each leaf summed
+        over the ranks with other rows of the batch for it."""
+        shardings = mesh_mod.param_shardings(self.params, self._table_axes)
+        return partial(mesh_mod.reduce_gradients, self.mesh, batch=self._batch_axes(),
+                       shardings=[sh if self._blocks else None for sh in shardings.values()])
+
+    def _local_batches(self, batches) -> Iterator[Dict]:
+        """This rank's rows of each global batch, with the global count of real
+        rows that its loss divides by."""
+        axes = self._batch_axes()
+        for batch in batches:
+            batch = {**batch, "count": np.asarray(batch["n_valid"], np.float32)}
+            yield mesh_mod.shard_batch(batch, self.mesh, axes, self.tcfg.batch_size)
+
+    def _sparsity_report(self, total: int) -> Dict[str, float]:
+        """``sparsity_report`` of the whole model; on sharded tables the blocks'
+        non-zero counts are summed over their ranks, and ``total`` is the
+        unpadded parameter count."""
+        if not self._blocks:
+            return sparsity_report(self.params)
+        shardings = mesh_mod.param_shardings(self.params, self._table_axes)
+        named = list(_tree.named_leaves(self.params))
+        table = torch.stack([torch.count_nonzero(t) for n, t in named if shardings[n]]).sum()
+        rest = torch.stack([torch.count_nonzero(t) for n, t in named if not shardings[n]]).sum()
+        nonzero = int(self.mesh.all_reduce(table, self._table_axes) + rest)
+        return {"total": total, "nonzero": nonzero,
+                "sparsity_pct": 100.0 * (1.0 - nonzero / max(total, 1))}
 
     # ------------------------------------------------------------------- fit
 
@@ -250,6 +394,8 @@ class DeepFMEstimator:
             keep_best: bool = False) -> "DeepFMEstimator":
         """Train. Xi (N, C[, 1]) int indices of the categorical fields, Xv
         (N, Nnum) float values, y (N,) labels, as the reference ``fit``.
+        On a mesh every rank passes the same arrays: the ranks shuffle alike
+        and each steps on its rows of every batch.
 
         ``resume_from``: a checkpoint path; restores params, optimizer state
         and epoch counter and continues training.
@@ -257,7 +403,6 @@ class DeepFMEstimator:
         ``keep_best``: keep host copies of the params at the epoch of the best
         valid AUC in ``self.best_params`` / ``self.best_epoch``."""
         tc = self.tcfg
-        self._require_single_device()
         do_prune = tc.prune if prune is None else bool(prune)
         prune_kw = dict(
             emb_r=tc.emb_r if emb_r is None else float(emb_r),
@@ -277,6 +422,8 @@ class DeepFMEstimator:
             y_valid = np.asarray(y_valid, dtype=np.float32).ravel()
 
         self._log("init_weights")
+        if self._blocks:            # a sharded fit before this one left row blocks
+            self.params, self._blocks = self.gather_params(), False
         if self.params is None:
             self.init_params()
 
@@ -290,7 +437,19 @@ class DeepFMEstimator:
             start_epoch = meta.get("epoch", -1) + 1
             self._log(f"resumed from {resume_from} at epoch {start_epoch}")
 
-        forward_fn = type(self).model_forward
+        mesh = self._setup_mesh()
+        n_shards = self._n_batch_shards()
+        if mesh is not None:
+            if tc.batch_size % n_shards:
+                raise ValueError(
+                    f"batch_size {tc.batch_size} not divisible by the {n_shards} batch shards of "
+                    f"mesh (data={mesh.data}, model={mesh.model}) with "
+                    f"exchange={self._exchange()!r}")
+            if teacher_model is not None or self.mcfg.quantization_aware:
+                raise ValueError("knowledge distillation and quantization-aware training are not "
+                                 "ported to a mesh: their softmax and activation scale span the "
+                                 "whole batch; train them with mesh_data = mesh_model = 1")
+        forward_fn = self._forward_fn()
         counts = deepfwfm.param_group_counts(self.params, self.mcfg)
         self._log("========")
         self._log(f"Summation of feature sizes: {sum(self.mcfg.feature_sizes):,}")
@@ -300,6 +459,18 @@ class DeepFMEstimator:
 
         rng_np = np.random.default_rng(tc.random_seed)
         generator = torch.Generator(device=self.device).manual_seed(tc.random_seed + 1)
+        step_generator: Any = generator
+        reduce = None
+        if mesh is not None:
+            self._shard_state()
+            self._log(f"mesh: data={mesh.data} model={mesh.model} exchange={self._exchange()} "
+                      f"({mesh.size} ranks, backend {mesh.backend}, rank 0 on {self.device})")
+            reduce = self._reducer()
+            step_generator = BatchShard(generator, tc.batch_size, mesh_mod.batch_rows(
+                mesh, self._batch_axes(), tc.batch_size).start)
+            if self._table_shards > 1:
+                prune_kw.update(mesh=mesh, table_axes=self._table_axes,
+                                dense_rows=type(self).model_spec(self.mcfg).dense_rows)
         n_iter = 0
         self.train_result, self.valid_result = [], []
         # total sparsity % per epoch, parallel to train_result / valid_result
@@ -319,14 +490,16 @@ class DeepFMEstimator:
             batches = batching.iter_batches(Xi_train, Xv_train, y_train, tc.batch_size)
             if teacher_logits_all is not None:
                 batches = _with_teacher(batches, teacher_logits_all, tc.batch_size)
+            if mesh is not None:
+                batches = self._local_batches(batches)
             for i_batch, batch in enumerate(batching.prefetch_to_device(batches, self.device)):
                 if epoch >= tc.warm:
                     n_iter += 1
                 # the loss stays on the device: reading it here would make the host
                 # wait for every step. It is fetched once, at the end of the epoch
                 epoch_losses.append(train_step(
-                    self.params, self.opt_state, batch, self.mcfg, tc, optimizer,
-                    generator=generator, teacher_logits=batch.get("teacher"),
+                    self.params, self.opt_state, batch, self.mcfg, tc, optimizer, reduce=reduce,
+                    generator=step_generator, teacher_logits=batch.get("teacher"),
                     forward_fn=forward_fn))
                 if debug.finite_checks_enabled():
                     debug.require_finite(epoch_losses[-1], f"the loss of step {self._step}")
@@ -341,11 +514,14 @@ class DeepFMEstimator:
                                                **prune_kw)
 
             if epoch_losses:   # the epoch's one read of the losses
-                self.last_epoch_losses = torch.stack(epoch_losses).tolist()
+                losses = torch.stack(epoch_losses)
+                if mesh is not None:        # each rank's share of every step's mean
+                    mesh.all_reduce(losses, self._batch_axes())
+                self.last_epoch_losses = losses.tolist()
                 self.last_epoch_mean_loss = sum(self.last_epoch_losses) / len(epoch_losses)
                 self.logger.debug("epoch %d mean train-step loss: %.6f"
                                   % (epoch + 1, self.last_epoch_mean_loss))
-            rep = sparsity_report(self.params)
+            rep = self._sparsity_report(num_total_original)
             self.epoch_sparsity.append(rep["sparsity_pct"])
             self._log("Model parameters %d, sparse rate %.2f%%"
                       % (rep["nonzero"], rep["sparsity_pct"]))
@@ -366,7 +542,7 @@ class DeepFMEstimator:
                              time.time() - epoch_begin))
                 if keep_best and va >= max(self.valid_result):
                     self.best_params = _tree.tree_map(lambda t: t.detach().cpu().clone(),
-                                                      self.params)
+                                                      self.gather_params())
                     self.best_epoch = epoch
                     self.best_valid_auc = va
             self._log("*" * 50)
@@ -382,7 +558,7 @@ class DeepFMEstimator:
                 break
 
         if do_prune:
-            counts = deepfwfm.param_group_counts(self.params, self.mcfg, nonzero=True)
+            counts = deepfwfm.param_group_counts(self.gather_params(), self.mcfg, nonzero=True)
             self._log("========")
             self._log_counts(counts, "pruned ")
             self._log(f"Non pruned model parameters: \t{num_total_original:,}")
@@ -397,15 +573,26 @@ class DeepFMEstimator:
     def _predict_logits(self, Xi: np.ndarray, Xv: np.ndarray,
                         batch_size: Optional[int] = None) -> np.ndarray:
         """Batched eval-mode forward with a padded tail → logits on the host.
-        Every batch is issued before the one copy back."""
+        Every batch is issued before the one copy back. On a mesh the batch
+        is rounded up to the shard count, each rank runs its rows, and the
+        logits are gathered, so every rank returns them all."""
         bs = batch_size or (self.tcfg.eval_batch_size * (2 if self.mcfg.use_ffm else 1))
+        n_shards = self._n_batch_shards()
+        bs = -(-bs // n_shards) * n_shards
         Xi = np.asarray(Xi, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
         Xv = np.asarray(Xv, dtype=np.float32).reshape(Xi.shape[0], -1)
-        forward_fn = type(self).model_forward
+        forward_fn = self._forward_fn()
         dummy_y = np.zeros(Xi.shape[0], dtype=np.float32)
-        out = [forward_fn(self.params, batch["xi"], batch["xv"], self.mcfg)[:batch["n_valid"]]
-               for batch in batching.prefetch_to_device(
-                   batching.iter_batches(Xi, Xv, dummy_y, bs), self.device)]
+        batches = batching.iter_batches(Xi, Xv, dummy_y, bs)
+        if self.mesh is not None:
+            axes = self._batch_axes()
+            batches = (mesh_mod.shard_batch(b, self.mesh, axes, bs) for b in batches)
+        out = []
+        for batch in batching.prefetch_to_device(batches, self.device):
+            logits = forward_fn(self.params, batch["xi"], batch["xv"], self.mcfg)
+            if self.mesh is not None:
+                logits = self.mesh.all_gather(logits, axes).reshape(-1)
+            out.append(logits[:batch["n_valid"]])
         return torch.cat(out).cpu().numpy() if out else np.zeros((0,), np.float32)
 
     def eval_by_batch(self, Xi, Xv, y) -> Tuple[float, float, float, float]:
@@ -443,19 +630,31 @@ class DeepFMEstimator:
     # ---------------------------------------------------------- persistence
 
     def save(self, path: str, epoch: int = 0, sparse: bool = False):
-        ckpt.save_checkpoint(path, self.params, self.opt_state, step=self._step,
-                             epoch=epoch, sparse=sparse,
-                             backend=self.tcfg.checkpoint_backend, metadata={
-                                 "model": self.mcfg.model_name,
-                                 "field_size": self.mcfg.field_size,
-                                 "sparse": self.tcfg.sparse,
-                                 "seed": self.tcfg.random_seed})
+        """Write the checkpoint. On a mesh the tree is gathered and unpadded,
+        so that it loads into any mesh shape and into either package; rank 0
+        writes it and every rank waits for that."""
+        params, opt_state = self.gather_params(), self._full(self.opt_state)
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save_checkpoint(path, params, opt_state, step=self._step,
+                                 epoch=epoch, sparse=sparse,
+                                 backend=self.tcfg.checkpoint_backend, metadata={
+                                     "model": self.mcfg.model_name,
+                                     "field_size": self.mcfg.field_size,
+                                     "sparse": self.tcfg.sparse,
+                                     "seed": self.tcfg.random_seed})
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load(self, path: str, strict: bool = True):
+        """Read the whole checkpoint (on every rank of a mesh, which keeps its
+        own blocks)."""
         if self.params is None:
             self.init_params()      # with strict=False, missing entries keep these values
-        self.params, _, meta = ckpt.load_checkpoint(path, self.params, strict=strict,
+        self.params, _, meta = ckpt.load_checkpoint(path, self.gather_params(), strict=strict,
                                                     device=self.device)
+        if self.mesh is not None and self._table_shards > 1:
+            self.params = mesh_mod.shard_params(self.params, self.mesh, self._table_axes)
+            self._blocks = True
         self._step = meta.get("step", 0)
         return self
 
@@ -465,22 +664,24 @@ class DeepFMEstimator:
         quality metrics, a profiler trace, batch timing and one-example
         latency, on the estimator's device. A QAT model is converted to a true
         int8 model first (reference ``:751-755, :968-971``). ``cuda`` is
-        accepted for API compatibility and ignored."""
+        accepted for API compatibility and ignored. A sharded model is
+        gathered first and served whole on each rank."""
+        params = self.gather_params()
         if quantization_aware or self.mcfg.quantization_aware:
-            predictor = Predictor(convert(self.params, self.mcfg, mode="qat"),
-                                  device=self.device)
+            predictor = Predictor(convert(params, self.mcfg, mode="qat"), device=self.device)
         else:
-            predictor = Predictor(self.params, self.mcfg, device=self.device)
+            predictor = Predictor(params, self.mcfg, device=self.device)
         return run_benchmark(predictor, Xi, Xv, y, batch_size=batch_size,
                              trace_dir=trace_dir, logger=self.logger)
 
     def print_size_of_model(self) -> int:
-        size = ckpt.model_size_bytes(self.params)
+        params = self.gather_params()
+        size = ckpt.model_size_bytes(params)
         self._log("========")
         self._log("MODEL SIZE")
         self._log("\tSize (MB):\t" + str(size / 1e6))
-        counts = deepfwfm.param_group_counts(self.params, self.mcfg, nonzero=True)
-        orig = deepfwfm.param_group_counts(self.params, self.mcfg, nonzero=False)
+        counts = deepfwfm.param_group_counts(params, self.mcfg, nonzero=True)
+        orig = deepfwfm.param_group_counts(params, self.mcfg, nonzero=False)
         self._log(f"\tSummation of feature sizes: {sum(self.mcfg.feature_sizes):,}")
         self._log_counts(counts, indent="\t")
         self._log(f"\tNon pruned model parameters: \t{orig['total']:,}")
