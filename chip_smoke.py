@@ -47,12 +47,19 @@ Phases, each printed on its own line:
      student, NFM's logits on the card equal to the CPU's within 1e-5 of the largest
  17. sharded training: 4 ranks (spawned; nccl with a card each, else gloo on card 0) on a
      (2 data, 2 model) mesh fit the flagship through a2a_grid, a2a and psum, 8 global batches
-     of 2,048 each, dropout on: the first step's loss within 1e-6 and its gradients within 1e-3
-     of each leaf's largest against the unsharded step; the logits after the fit against the
-     one-rank fit and each other (rtol 2e-4, atol 2e-5); the a2a_grid model gathered, saved,
-     loaded on one device with identical logits and served in fp32 and int8 (the fused tower
-     launched and held to its plain version); a pruned epoch's sparsity against one rank's;
-     ms per sharded step beside the unsharded one, and the bytes of each collective a step
+     of 2,048 each, dropout on: the first step's loss within 1e-6 and its gradients against
+     the unsharded step and the same rows in the ranks' pieces; the logits after the fit
+     against the one-rank fit, the pieces fit and each other; the a2a_grid model gathered,
+     saved, loaded on one device with identical logits and served in fp32 and int8 (the fused
+     tower launched and held to its plain version); a pruned epoch's sparsity against one
+     rank's; distillation under a2a_grid (the a2a_grid model teaching cli.kd's student) and
+     QAT under psum: the first step against the unsharded step, QAT's tower-input scale equal
+     to one rank's to the bit, a fit each; the QAT model gathered, converted and served in
+     int8 through the fused tower, held to its plain version and the CPU; dropout at rate
+     0.3 on the card equal to the CPU's bit for bit; ms per sharded step beside the
+     unsharded one, and the bytes of each collective a step. On four cards, also cli.main_all,
+     cli.kd and cli.quantization -quantization_aware 1 under torchrun over NCCL.
+     --sharded-only runs phases 1 to 3 and this one, without the result lines
 then one JSON line of per-kernel results, the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -918,6 +925,62 @@ def sharded_train_config(seed: int, batch: int, exchange: str = "a2a_grid", mesh
 PRUNE_17 = dict(prune=True, warm=0, sparse=0.9, prune_interval=4, prune_omega=2.0)
 
 
+def first_step(rank: int, est, full, batch0, gen_of, to_dev, seed: int, *, pieces: bool,
+               ref_forward=None, forward=None) -> dict:
+    """The first step of a sharded fit from the seeded parameters ``full``
+    (``est`` shards them), its loss and reduced gradients, against the
+    unsharded step from the same parameters and dropout numbers and, with
+    ``pieces``, the same rows in the ranks' pieces on one device (a loss
+    whose softmax or scale spans the batch has no pieces form). Both
+    references run on rank 0, which returns the comparisons. A KD batch
+    carries ``teacher``; ``ref_forward``/``forward`` replace the two sides'
+    forwards."""
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.parallel import mesh as mesh_mod
+    from xsdeepfwfm_deprecated_torch.train import trainer
+    cfg, tc, device, mesh = est.mcfg, est.tcfg, est.device, est.mesh
+    batch, axes = tc.batch_size, est._batch_axes()
+    teacher = lambda b: {"teacher_logits": b["teacher"]} if "teacher" in b else {}
+    res = {}
+    if rank == 0:
+        whole = to_dev({k: v for k, v in batch0.items() if k != "count"})
+        ref_loss, ref_grads = trainer.loss_and_grads(
+            full, whole, cfg, tc, generator=torch.Generator(device=device).manual_seed(seed + 1),
+            forward_fn=ref_forward or type(est).model_forward, **teacher(whole))
+        if pieces:     # the same rows in the ranks' pieces: the tower's products at their shapes
+            n_pieces, parts = mesh.axis_size(axes), []
+            for r in range(n_pieces):
+                rows = slice(r * batch // n_pieces, (r + 1) * batch // n_pieces)
+                piece = {k: (v[rows] if isinstance(v, np.ndarray) and v.ndim else v)
+                         for k, v in batch0.items()}
+                parts.append(trainer.loss_and_grads(full, to_dev(piece), cfg, tc,
+                                                    generator=gen_of(rows)))
+            piece_loss = sum(float(p[0]) for p in parts)
+            piece_grads = [sum(gs) for gs in zip(*(p[1] for p in parts))]
+            del parts
+    est._shard_state()
+    local0 = to_dev(mesh_mod.shard_batch(batch0, mesh, axes, batch))
+    loss, grads = trainer.loss_and_grads(
+        est.params, local0, cfg, tc, generator=gen_of(mesh_mod.batch_rows(mesh, axes, batch)),
+        forward_fn=forward or est._forward_fn(), group=est._batch_group(), **teacher(local0))
+    est._reducer()(grads)
+    loss = float(mesh.all_reduce(loss, axes))
+    names = [n for n, _ in _tree.named_leaves(est.params)]
+    full_grads = est._full(_tree.rebuild(est.params, dict(zip(names, grads))))
+    if rank == 0:
+        rel = lambda g, r: float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        res["first_loss"], res["first_loss_err"] = loss, abs(loss - float(ref_loss))
+        res["grad_errs"] = {name: rel(g, r) for (name, g), r in
+                            zip(_tree.named_leaves(full_grads), ref_grads)}
+        res["grad_err"] = max(res["grad_errs"].values())
+        if pieces:
+            res["piece_loss_err"] = abs(loss - piece_loss)
+            res["piece_errs"] = {name: rel(g, r) for (name, g), r in
+                                 zip(_tree.named_leaves(full_grads), piece_grads)}
+            res["piece_err"] = max(res["piece_errs"].values())
+    return res
+
+
 def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
                  profile: bool = False) -> dict:
     """One rank of phase 17: for each exchange, the first step from the seeded
@@ -946,6 +1009,10 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
     t_rank = time.perf_counter()
     out = {"exchanges": {}}
     mesh = mesh_mod.make_mesh(*SHARD_MESH, device=device)    # one set of groups for every fit
+    batch0 = next(batching.iter_batches(xi, xv, y, batch))
+    batch0["count"] = np.asarray(batch0["n_valid"], np.float32)
+    gen_of = lambda rows: BatchShard(torch.Generator(device=device).manual_seed(seed + 1),
+                                     batch, rows.start)
     for exchange in SHARD_EXCHANGES:
         t_exchange = time.perf_counter()
         tc = sharded_train_config(seed, batch, exchange, SHARD_MESH)
@@ -956,49 +1023,9 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
         full = est.init_params()
         est._setup_mesh()
         axes = est._batch_axes()
-        batch0 = next(batching.iter_batches(xi, xv, y, batch))
-        batch0["count"] = np.asarray(batch0["n_valid"], np.float32)
-        gen_of = lambda rows: BatchShard(torch.Generator(device=device).manual_seed(seed + 1),
-                                         batch, rows.start)
-        if rank == 0:
-            # the unsharded step; and the same rows in the ranks' pieces on one device,
-            # which run the tower's products at the ranks' shapes
-            whole = {k: v for k, v in batch0.items() if k != "count"}
-            ref_loss, ref_grads = trainer.loss_and_grads(
-                full, to_dev(whole), cfg, tc,
-                generator=torch.Generator(device=device).manual_seed(seed + 1))
-            n_pieces, pieces = mesh.axis_size(axes), []
-            for r in range(n_pieces):
-                rows = slice(r * batch // n_pieces, (r + 1) * batch // n_pieces)
-                piece = {k: (v[rows] if isinstance(v, np.ndarray) and v.ndim else v)
-                         for k, v in batch0.items()}
-                pieces.append(trainer.loss_and_grads(full, to_dev(piece), cfg, tc,
-                                                     generator=gen_of(rows)))
-            piece_loss = sum(float(p[0]) for p in pieces)
-            piece_grads = [sum(gs) for gs in zip(*(p[1] for p in pieces))]
-            del pieces
-        est._shard_state()
-        rows = mesh_mod.batch_rows(mesh, axes, batch)
-        gen = gen_of(rows)
-        local0 = to_dev(mesh_mod.shard_batch(batch0, mesh, axes, batch))
-        loss, grads = trainer.loss_and_grads(est.params, local0, cfg, tc, generator=gen,
-                                             forward_fn=est._forward_fn())
-        est._reducer()(grads)
-        loss = float(mesh.all_reduce(loss, axes))
-        names = [n for n, _ in _tree.named_leaves(est.params)]
-        full_grads = est._full(_tree.rebuild(est.params, dict(zip(names, grads))))
-        if rank == 0:
-            rel = lambda g, r: float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
-            res["first_loss"], res["first_loss_err"] = loss, abs(loss - float(ref_loss))
-            res["piece_loss_err"] = abs(loss - piece_loss)
-            res["grad_errs"] = {name: rel(g, r) for (name, g), r in
-                                zip(_tree.named_leaves(full_grads), ref_grads)}
-            res["piece_errs"] = {name: rel(g, r) for (name, g), r in
-                                 zip(_tree.named_leaves(full_grads), piece_grads)}
-            res["grad_err"] = max(res["grad_errs"].values())
-            res["piece_err"] = max(res["piece_errs"].values())
-            del ref_grads, piece_grads
-        del full, full_grads, grads, est
+        res.update(first_step(rank, est, full, batch0, gen_of, to_dev, seed, pieces=True))
+        gen = gen_of(mesh_mod.batch_rows(mesh, axes, batch))
+        del full, est
         # the fit, its logits, and timed steps on its state
         est = trainer.DeepFMEstimator(cfg, tc, logger=quiet, device=device)
         est.mesh = mesh
@@ -1013,13 +1040,12 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
             t0 = time.perf_counter()
             est.save(path, epoch=0)
             res["save_s"] = time.perf_counter() - t0
-            gathered = est.gather_params()
+            gathered = est.gather_params()      # also the teacher of the KD leg below
             if rank == 0:
                 one = trainer.DeepFMEstimator(cfg, sharded_train_config(seed, batch),
                                               logger=quiet, device=device)
                 one.params = gathered
                 out["ckpt"], out["gathered_logits"] = path, one._predict_logits(xi_e, xv_e)
-            del gathered
         # timed steps on the fit's state, then the collectives of one step
         cycle = [to_dev(b) for b in est._local_batches(
             batching.iter_batches(xi[:4 * batch], xv[:4 * batch], y[:4 * batch], batch))]
@@ -1049,7 +1075,105 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
     out["prune_fit_s"] = time.perf_counter() - t0
     out["prune_sparsity"] = est.epoch_sparsity
     out["backend"] = est.mesh.backend
+    del est
+    out.update(kd_qat_rank(rank, device, seed, cfg, sizes, mesh, gathered, batch0, gen_of,
+                           to_dev, quiet))
     out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+KD_EXCHANGE, QAT_EXCHANGE = "a2a_grid", "psum"   # the batch's ranks: the world, then `data`
+
+
+def recording(scales: list, amax_fn=None):
+    """A QAT ``amax_fn`` that appends each abs-max the tower's scales take."""
+    def record(amax):
+        out = amax if amax_fn is None else amax_fn(amax)
+        scales.append(float(out))
+        return out
+    return record
+
+
+def kd_qat_rank(rank: int, device, seed: int, cfg, sizes, mesh, teacher_params, batch0, gen_of,
+                to_dev, quiet) -> dict:
+    """Phase 17's distillation and QAT legs on one rank: KD under a2a_grid,
+    the a2a_grid fit's gathered model teaching a student with cli.kd's
+    400x2 tower; QAT under psum. Each: the first step against the unsharded
+    step (loss, gradients and, for QAT, every activation scale), a fit of
+    SHARD_STEPS global batches, its eval logits, timed steps and one step's
+    collectives. Rank 0 also returns the QAT fit's gathered parameters."""
+    import dataclasses
+    from functools import partial
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.cli.kd import STUDENT_DEEP_NODES, STUDENT_H_DEPTH
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.parallel import mesh as mesh_mod
+    from xsdeepfwfm_deprecated_torch.train import trainer
+
+    batch = sizes[0]
+    (xi, xv, y), (xi_e, xv_e) = sharded_rows(cfg, seed, sizes)
+    teacher = trainer.DeepFMEstimator(cfg, sharded_train_config(seed, batch), logger=quiet,
+                                      device=device)
+    teacher.params = teacher_params
+    cycle_rows = (xi[:4 * batch], xv[:4 * batch], y[:4 * batch])
+    teacher_cycle = teacher._predict_logits(*cycle_rows[:2])
+    legs = {"kd": (dataclasses.replace(cfg, deep_nodes=STUDENT_DEEP_NODES,
+                                       h_depth=STUDENT_H_DEPTH), KD_EXCHANGE, teacher),
+            "qat": (dataclasses.replace(cfg, quantization_aware=True), QAT_EXCHANGE, None)}
+    out = {}
+    for leg, (leg_cfg, exchange, leg_teacher) in legs.items():
+        t_leg = time.perf_counter()
+        tc = sharded_train_config(seed, batch, exchange, SHARD_MESH)
+        est = trainer.DeepFMEstimator(leg_cfg, tc, logger=quiet, device=device)
+        est.mesh = mesh
+        full = est.init_params()
+        est._setup_mesh()
+        scales, scales_one, kw = [], [], {}
+        if leg == "qat":
+            kw = dict(ref_forward=partial(deepfwfm.forward, amax_fn=recording(scales_one)),
+                      forward=partial(deepfwfm.forward, lookup_fn=est._lookup_fn,
+                                      amax_fn=recording(scales, est._batch_group().max)))
+        first = {**batch0, "teacher": teacher_cycle[:batch]} if leg_teacher else batch0
+        res = out[leg] = first_step(rank, est, full, first, gen_of, to_dev, seed, pieces=False,
+                                    **kw)
+        res.update(scales=scales, scales_one=scales_one, exchange=exchange)
+        gen = gen_of(mesh_mod.batch_rows(mesh, est._batch_axes(), batch))
+        del full, est
+        # the fit, its eval logits (QAT: every eval batch's scales over the ranks)
+        est = trainer.DeepFMEstimator(leg_cfg, tc, logger=quiet, device=device)
+        est.mesh = mesh
+        t0 = time.perf_counter()
+        est.fit(xi, xv, y, teacher_model=leg_teacher)
+        res["fit_s"] = time.perf_counter() - t0
+        res["losses"] = est.last_epoch_losses
+        res["logits"] = est._predict_logits(xi_e, xv_e)
+        if leg == "qat":
+            gathered = est.gather_params()
+            if rank == 0:
+                res["params"] = _tree.tree_map(lambda t: t.to("cpu", copy=True), gathered)
+            del gathered
+        # timed steps on the fit's state, then the collectives of one step
+        batches = batching.iter_batches(*cycle_rows, batch)
+        if leg_teacher:
+            batches = trainer._with_teacher(batches, teacher_cycle, batch)
+        cycle = [to_dev(b) for b in est._local_batches(batches)]
+        opt, reduce, fwd = trainer.make_optimizer(tc), est._reducer(), est._forward_fn()
+        step_i = iter(range(10 ** 6))
+
+        def step():
+            b = cycle[next(step_i) % 4]
+            return trainer.train_step(est.params, est.opt_state, b, leg_cfg, tc, opt,
+                                      reduce=reduce, generator=gen, forward_fn=fwd,
+                                      group=est._batch_group(), teacher_logits=b.get("teacher"))
+
+        res["step_ms"] = step_times(step, device, SHARD_TIMED)
+        mesh.traffic.clear()
+        step()
+        res["traffic"] = list(mesh.traffic)
+        res["leg_s"] = time.perf_counter() - t_leg
+        del est, cycle
     return out
 
 
@@ -1115,20 +1239,60 @@ def relu_flips(cfg, params, rows, seed: int, batch: int, n_pieces: int):
     return out
 
 
+def torchrun_clis(card: str) -> None:
+    """With a card for each of four ranks: the training CLIs under
+    torchrun on a (2, 2) mesh over NCCL, on tiny-criteo with the flagship's
+    flags. cli.main_all writes the teacher, then cli.kd and
+    cli.quantization -quantization_aware 1 train from it. Prints each
+    command's seconds and rank 0's lines of the mesh and the test metrics."""
+    import glob
+    import os
+    import subprocess
+    import tempfile
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    flags = ["-dataset", "tiny-criteo", "-n_epochs", "1", *FLAGSHIP_FLAGS, "-mesh_data", "2",
+             "-mesh_model", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(module: str, extra) -> None:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "4", "-m", f"xsdeepfwfm_deprecated_torch.cli.{module}",
+                   *flags, *extra]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            check(res.returncode == 0 and "backend nccl" in res.stdout,
+                  f"torchrun cli.{module}: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+                  f"{res.stderr[-3000:]}")
+            lines = [line.split(" - INFO - ", 1)[-1].strip() for line in res.stdout.splitlines()
+                     if "mesh:" in line or "\tAcc:" in line or "tower launches" in line]
+            print(f"  torchrun cli.{module} on 4 cards, {time.perf_counter() - t0:.1f} s: "
+                  + "; ".join(lines) + f" [{card}]", flush=True)
+
+        run("main_all", [])
+        teacher = glob.glob(os.path.join(tmp, "saved_models", "*.npz"))[0][:-len(".npz")]
+        run("kd", ["-save_model_path", teacher])
+        run("quantization", ["-save_model_path", teacher, "-quantization_aware", "1"])
+
+
 def sharded_phase(args, cfg, card: str) -> dict:
     """Phase 17: sharded training on the card. Returns what the kernels line
     reports of the int8 tower on this path."""
+    import dataclasses
     import logging
     import os
     import tempfile
     import threading
 
     from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.cli.kd import STUDENT_DEEP_NODES, STUDENT_H_DEPTH
     from xsdeepfwfm_deprecated_torch.compression.quantization import (
-        convert, quantized_lookup_serving)
+        convert, quantized_forward, quantized_lookup_serving)
     from xsdeepfwfm_deprecated_torch.data import batching
     from xsdeepfwfm_deprecated_torch.models import deepfwfm
     from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp, int8_mlp_reference
+    from xsdeepfwfm_deprecated_torch.ops.mlp import dropout
     from xsdeepfwfm_deprecated_torch.parallel.launch import run_ranks
     from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
     from xsdeepfwfm_deprecated_torch.train import trainer
@@ -1221,6 +1385,18 @@ def sharded_phase(args, cfg, card: str) -> dict:
     check(np.allclose(loaded, logits["a2a_grid"], rtol=2e-5, atol=2e-6),
           "the gathered model's logits differ from the sharded eval")
     npz_bytes = os.path.getsize(r0["ckpt"] + ".npz")
+    spec = deepfwfm.make_embedding_spec(cfg)
+
+    def tower_against_plain(qm) -> float:
+        """The fused tower on a served model's B=BATCH activations against its
+        plain version (launches made here are not the path's)."""
+        with torch.inference_mode():
+            x = quantized_lookup_serving(qm.emb2_q, spec, torch.from_numpy(xi_e).to(dev),
+                                         torch.from_numpy(xv_e).to(dev)).reshape(len(xi_e), -1)
+            layers, fc = qm.fused_tower
+            return float((int8_mlp(x.contiguous(), layers, fc)
+                          - int8_mlp_reference(x.contiguous(), layers, fc)).abs().max())
+
     int8_mlp.launches = 0
     pred = Predictor(fresh.params, cfg)
     fp32 = pred.logits(xi_e, xv_e)
@@ -1229,16 +1405,45 @@ def sharded_phase(args, cfg, card: str) -> dict:
     int8 = pred_q.logits(xi_e, xv_e)
     launches = int8_mlp.launches
     check(launches >= 1 and bool(np.isfinite(int8).all()), f"int8 tower launches {launches}")
-    qm = pred_q._model
-    spec = deepfwfm.make_embedding_spec(cfg)
-    with torch.inference_mode():
-        x = quantized_lookup_serving(qm.emb2_q, spec, torch.from_numpy(xi_e).to(dev),
-                                     torch.from_numpy(xv_e).to(dev)).reshape(len(xi_e), -1)
-        layers, fc = qm.fused_tower
-        tower_err = float((int8_mlp(x.contiguous(), layers, fc)
-                           - int8_mlp_reference(x.contiguous(), layers, fc)).abs().max())
+    tower_err = tower_against_plain(pred_q._model)
     check(tower_err <= TOL, f"int8_mlp vs plain version on the sharded model: {tower_err}")
+
+    # the QAT model trained on the mesh, gathered, converted and served: the fused tower
+    kd, qat = r0["kd"], r0["qat"]
+    qcfg = dataclasses.replace(cfg, quantization_aware=True)
+    qm_qat = convert(qat["params"], qcfg, "qat")
+    before = int8_mlp.launches
+    pred_qat = Predictor(qm_qat)
+    qat_int8 = pred_qat.logits(xi_e, xv_e)
+    qat_launches = int8_mlp.launches - before
+    check(qat_launches >= 1 and bool(np.isfinite(qat_int8).all()),
+          f"the QAT model: int8 tower launches {qat_launches}")
+    qat_cpu = quantized_forward(qm_qat, torch.from_numpy(xi_e), torch.from_numpy(xv_e),
+                                use_fused_kernel=True).numpy()
+    qat_cpu_err = float(np.abs(qat_int8 - qat_cpu).max())
+    np.testing.assert_allclose(qat_int8, qat_cpu, rtol=0, atol=TOL)
+    qat_tower_err = tower_against_plain(pred_qat._model)
+    check(qat_tower_err <= TOL, f"int8_mlp vs plain version on the QAT model: {qat_tower_err}")
+    one_qat = trainer.DeepFMEstimator(qcfg, tc_one, logger=quiet)
+    one_qat.params = _tree.tree_map(lambda t: t.to(dev), qat["params"])
+    qat_eval_gap = float(np.abs(qat["logits"] - one_qat._predict_logits(xi_e, xv_e)).max())
+    del one_qat
+
+    # the dropout divides by a tensor: the card keeps the CPU's values to the bit
+    x = torch.randn(TRAIN_BATCH, cfg.deep_nodes, generator=torch.Generator().manual_seed(args.seed))
+    drop_cpu = dropout(torch.Generator().manual_seed(args.seed + 1), x, 0.3, True)
+    drop_card = dropout(torch.Generator().manual_seed(args.seed + 1), x.to(dev), 0.3, True).cpu()
+    kept = drop_cpu != 0
+    by_number = (x.to(dev) / (1.0 - 0.3)).cpu()[kept]    # a Python divisor, as before the repair
+    by_number_share = float((by_number != drop_cpu[kept]).float().mean())
+    check(torch.equal(drop_card, drop_cpu), "dropout at rate 0.3: the card's kept values differ "
+          "from the CPU's")
     sp_one, sp_sharded = one_pruned.epoch_sparsity[-1], r0["prune_sparsity"][-1]
+    for leg in ("kd", "qat"):
+        for other in results[1:]:
+            check(np.array_equal(other[leg]["logits"], r0[leg]["logits"])
+                  and other[leg]["scales"] == r0[leg]["scales"],
+                  f"{leg}: the ranks returned different logits or scales")
     tmp.cleanup()
     phase_s = time.perf_counter() - t_phase
 
@@ -1249,29 +1454,33 @@ def sharded_phase(args, cfg, card: str) -> dict:
               f"{ranks_s - r0['rank_s']:.1f} s to start them (CUDA init included; the "
               f"one-device references took {refs_s:.1f} s meanwhile), "
               + ", ".join(f"{ex} {res['exchange_s']:.1f} s" for ex, res in r0["exchanges"].items())
-              + f", the pruned fit {r0['prune_fit_s']:.1f} s {where}")
+              + f", the pruned fit {r0['prune_fit_s']:.1f} s, KD {kd['leg_s']:.1f} s, QAT "
+              f"{qat['leg_s']:.1f} s {where}")
     print("  the first step's tower pre-activations, the whole batch's products against "
           f"{n_ranks} row pieces' (same dropout): "
           + "; ".join(f"layer {i}: {n} of {TRAIN_BATCH * cfg.deep_nodes} change sign, largest "
                       f"difference {gap:.2e}" for i, (n, gap) in enumerate(flips)) + f" {where}")
-    for exchange, res in r0["exchanges"].items():
+    def moved(traffic) -> str:
         by = {}
-        for kind, group, size, n_bytes in res["traffic"]:
-            by[(kind, group, size)] = by.get((kind, group, size), 0) + n_bytes
-        moved = ", ".join(f"{k} over the {g} group ({n} ranks) {b} B"
-                          for (k, g, n), b in sorted(by.items()))
-        worst = sorted(res["grad_errs"].items(), key=lambda kv: -kv[1])[:3]
+        for kind, group, size, n_bytes in traffic:
+            by.setdefault((kind, group, size), []).append(n_bytes)
+        return ", ".join(f"{k} over the {g} group ({n} ranks) {sum(b)} B in {len(b)}"
+                         for (k, g, n), b in sorted(by.items()))
+
+    def worst(res) -> str:
+        return ", ".join(f"{n} {e:.2e}" for n, e in
+                         sorted(res["grad_errs"].items(), key=lambda kv: -kv[1])[:3])
+
+    for exchange, res in r0["exchanges"].items():
         print(f"  {exchange}: table shards {res['shards']}; first step: loss "
               f"{res['first_loss']:.6f}, vs the unsharded step within {res['first_loss_err']:.2e}, gradients within "
-              f"{res['grad_err']:.2e} of each leaf's largest (worst: "
-              + ", ".join(f"{n} {e:.2e}" for n, e in worst)
-              + f"); vs the same rows in the ranks' pieces on one device: loss within "
+              f"{res['grad_err']:.2e} of each leaf's largest (worst: {worst(res)}); vs the same rows in the ranks' pieces on one device: loss within "
               f"{res['piece_loss_err']:.2e}, gradients within {res['piece_err']:.2e}. After "
               f"{SHARD_STEPS} steps, logits of {len(xi_e)} rows: vs the pieces fit on one device "
               f"max |diff| {res['piece_gap']:.3e}, vs the one-rank fit {res['one_gap']:.3e}; fit "
               f"{res['fit_s']:.2f} s; train step {res['step_ms']:.3f} ms between CUDA events "
               f"(median of {SHARD_TIMED}; one rank: {one_ms:.3f} ms); collectives a step: "
-              f"{moved} {where}")
+              f"{moved(res['traffic'])} {where}")
         if "profile" in res:
             wall, busy, top = res["profile"]
             print(f"    profile of rank 0's step: {wall:.3f} ms under the profiler, device "
@@ -1287,6 +1496,25 @@ def sharded_phase(args, cfg, card: str) -> dict:
           f"fp32 logits {float(np.abs(int8 - fp32).max()):.3e}, int8_mlp vs plain version "
           f"{tower_err:.3e}; pruned epoch sparsity sharded {sp_sharded:.4f}% vs one rank "
           f"{sp_one:.4f}% {where}")
+    for leg, res in (("KD", kd), ("QAT", qat)):
+        what = (f"the a2a_grid model teaches a student with cli.kd's tower, "
+                f"{STUDENT_H_DEPTH} layers of {STUDENT_DEEP_NODES}" if leg == "KD"
+                else "the flagship with fake-quant on the tower")
+        print(f"  {leg} under {res['exchange']} ({what}): first step: loss {res['first_loss']:.6f}, "
+              f"vs the unsharded step within {res['first_loss_err']:.2e}, gradients within "
+              f"{res['grad_err']:.2e} of each leaf's largest (worst: {worst(res)}); fit of "
+              f"{SHARD_STEPS} steps {res['fit_s']:.2f} s, last loss {res['losses'][-1]:.6f}; train "
+              f"step {res['step_ms']:.3f} ms between CUDA events (median of {SHARD_TIMED}); "
+              f"collectives a step: {moved(res['traffic'])} {where}")
+    print(f"  QAT scales of the first step's tower input and {cfg.h_depth} hidden activations, "
+          f"sharded {qat['scales']} vs one rank {qat['scales_one']} (the input's bit-equal); "
+          f"eval logits on the mesh vs one device max |diff| {qat_eval_gap:.3e}; the gathered "
+          f"model converted (mode qat) and served at B={len(xi_e)}: int8 tower launches "
+          f"{qat_launches}, logits vs the CPU's int8 forward max |diff| {qat_cpu_err:.3e}, "
+          f"int8_mlp vs plain version {qat_tower_err:.3e} {where}")
+    print(f"  dropout at rate 0.3 on {TRAIN_BATCH}x{cfg.deep_nodes}: the card's kept values equal "
+          f"the CPU's bit for bit ({int(kept.sum())} kept); a Python divisor on the card would "
+          f"change {by_number_share:.1%} of them {where}")
     # A ReLU input within rounding of zero takes the other side in the whole batch's products
     # than in the ranks' (the flips line), which moves one example's share of a tower
     # gradient: the one-rank step is held to FLIP_GRAD of each leaf's largest, the same rows
@@ -1306,7 +1534,23 @@ def sharded_phase(args, cfg, card: str) -> dict:
     check(cross_ok, f"logits across the exchanges differ by {cross}")
     check(sp_one > 0 and abs(sp_one - sp_sharded) <= 0.01,
           f"pruned sparsity: sharded {sp_sharded}% against one rank {sp_one}%")
-    return {"launches_sharded_path": launches, "max_abs_err_sharded": tower_err}
+    # KD's softmax and QAT's scale span the batch, so they have no pieces form: each first
+    # step is held to the unsharded step as the exchanges are; the tower input's scale is a
+    # maximum of the same values on every rank, so it is the one-rank scale to the bit
+    for leg, res in (("KD", kd), ("QAT", qat)):
+        check(res["first_loss_err"] <= 1e-6 and res["grad_err"] <= FLIP_GRAD,
+              f"{leg}: the first step's loss {res['first_loss_err']} and gradients "
+              f"{res['grad_err']} from the unsharded step's")
+        check(len(res["losses"]) == SHARD_STEPS and bool(np.isfinite(res["losses"]).all()),
+              f"{leg}: losses {res['losses']}")
+    check(len(qat["scales"]) == cfg.h_depth + 1 and qat["scales"][0] == qat["scales_one"][0],
+          f"QAT: the tower input's scale {qat['scales'][:1]} against one rank's "
+          f"{qat['scales_one'][:1]}")
+    check(qat_eval_gap <= FLIP_LOGIT, f"QAT eval on the mesh against one device: {qat_eval_gap}")
+    if backend == "nccl":
+        torchrun_clis(card)
+    return {"launches_sharded_path": launches + qat_launches,
+            "max_abs_err_sharded": max(tower_err, qat_tower_err)}
 
 
 def main(argv=None) -> int:
@@ -1316,6 +1560,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-sharded", action="store_true",
                     help="profile a step of each exchange in phase 17 (the profiler's start on "
                          "every rank adds tens of seconds to the phase)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="phases 1 to 3 and 17 only (for a machine with four cards), without the "
+                         "result lines")
     args = ap.parse_args(argv)
 
     # ---- 1. device
@@ -1360,6 +1607,11 @@ def main(argv=None) -> int:
     phase(3, f"flagship {cfg.model_name}: {rows} packed rows, E={cfg.embedding_size}, "
              f"tower {cfg.field_size * cfg.embedding_size}->{'x'.join(map(str, cfg.deep_layers))}"
              f"->1, {deepfwfm.param_count(params_cpu)} params, requests {list(REQUEST_SIZES)}")
+
+    if args.sharded_only:
+        sharded_phase(args, cfg, card)
+        print(card)
+        return 0
 
     # ---- 4-5. the main path: fp32 then int8 serving, through the Predictor
     int8_mlp.launches = 0

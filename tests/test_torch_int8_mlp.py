@@ -40,28 +40,95 @@ def _tiles_with_different_scales(b, k, block_b, seed):
     return x
 
 
-def test_reference_matches_pallas_interpret():
-    """Four tiles with different scales, K = 50 (not a multiple of 8).
-    atol 1e-4: the int8 codes and int32 sums agree exactly, the float
-    epilogue may round differently in the last bit."""
+# The plain version divides by 127 (as eager JAX and the card do); the Pallas
+# kernel is jitted, and XLA multiplies by 1/127. An activation within an ulp
+# of a rounding boundary then takes the neighbouring int8 code, and a flipped
+# code moves its row by one code of that layer times the weights after it.
+# Over 1,500 seeds of the case below (weights from seed s, inputs from s + 1)
+# 16 of 384,000 rows differed beyond 1e-4, at most 2 in one seed, the largest
+# by 0.50% of the largest |logit| (seed 275); every other row agreed within
+# 1e-4, the float epilogue rounded in another order. FLIP_SEEDS: the original
+# case and the seven seeds of that sweep with the largest differences.
+FLIP_SEEDS = (0, 213, 267, 275, 355, 650, 803, 946)
+FLIPPED_ROWS = 2            # rows a seed may have outside atol 1e-4
+FLIP_SHARE = 1e-2           # of the largest |logit|, for those rows
+
+
+def _pallas_and_reference(seed):
+    """(the plain version, the Pallas kernel in interpret mode, packed tower)
+    on four 64-row tiles with different scales, K = 50 (not a multiple of 8)."""
     import jax.numpy as jnp
 
     from xsdeepfwfm_deprecated_tpu.ops.pallas.int8_mlp import int8_mlp_pallas
-    deep_q = _deep_q(50, [40, 40], seed=0)
+    deep_q = _deep_q(50, [40, 40], seed=seed)
     net = deep_q["net_1"]
     layers_j = tuple((jnp.asarray(l["w_q"].numpy()), jnp.asarray(l["w_scale"].numpy()),
                       jnp.asarray(l["b"].numpy())) for l in net["layers"])
     fc_j = (jnp.asarray(net["fc"]["w_q"].numpy()), jnp.asarray(net["fc"]["w_scale"].numpy()))
-    x = _tiles_with_different_scales(256, 50, 64, seed=1)
+    x = _tiles_with_different_scales(256, 50, 64, seed=seed + 1)
     want = np.asarray(int8_mlp_pallas(jnp.asarray(x), layers_j, fc_j, block_b=64,
                                       interpret=True))
     layers_t, fc_t = t_k.pack_quantized_deep(deep_q)
     got = t_k.int8_mlp_reference(torch.from_numpy(x), layers_t, fc_t, block_b=64)
+    return got, want, (x, layers_t, fc_t)
+
+
+def _assert_within_flip_bound(got, want):
+    far = np.abs(got - want) > 1e-4
+    assert int(far.sum()) <= FLIPPED_ROWS, int(far.sum())
+    np.testing.assert_allclose(got[~far], want[~far], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FLIP_SHARE * float(np.abs(want).max()))
+
+
+def test_reference_matches_pallas_interpret():
+    """Four tiles with different scales, K = 50. Every row within atol 1e-4
+    but at most FLIPPED_ROWS, which lie within FLIP_SHARE of the largest
+    |logit| (one flipped code, see above); on this seed none is."""
+    got, want, (x, layers_t, fc_t) = _pallas_and_reference(0)
     assert got.shape == (256, 1) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    _assert_within_flip_bound(got.numpy(), want)
     # per-tile scales matter: one tile over the whole batch gives other codes
     whole = t_k.int8_mlp_reference(torch.from_numpy(x), layers_t, fc_t, block_b=256)
     assert not np.allclose(whole.numpy(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", FLIP_SEEDS)
+def test_reference_matches_pallas_interpret_across_seeds(seed):
+    """The bound above on the seeds of the sweep where codes flipped."""
+    got, want, _ = _pallas_and_reference(seed)
+    _assert_within_flip_bound(got.numpy(), want)
+
+
+def test_quantized_dense_equals_eager_jax_to_the_bit():
+    """The port's dynamic int8 layer against the JAX package's run eagerly
+    (``jax.disable_jit``), which divides by 127 as the port does: the scale,
+    the int8 codes and the outputs are equal to the bit on 200 seeded batches
+    of the flagship's first layer (64 x 390 @ 390 x 400). Jitted, XLA
+    multiplies by 1/127 and the scale differs in some of them, which is why
+    the tests against jitted JAX functions state a tolerance."""
+    import jax
+    import jax.numpy as jnp
+
+    from xsdeepfwfm_deprecated_tpu.ops import quantized as j_q
+    rng = np.random.default_rng(7)
+    w = (rng.normal(size=(390, 400)) * 0.07).astype(np.float32)
+    b = (rng.normal(size=(400,)) * 0.1).astype(np.float32)
+    w_q, w_s = t_q.quantize_symmetric(torch.from_numpy(w), axis=1)
+    jitted_scale = jax.jit(lambda a: j_q.quantize_symmetric(a)[1])
+    differ = 0
+    for _ in range(200):
+        x = (rng.normal(size=(64, 390)) * rng.uniform(0.1, 10.0)).astype(np.float32)
+        codes, scale = t_q.quantize_symmetric(torch.from_numpy(x))
+        out = t_q.quantized_dense(torch.from_numpy(x), w_q, w_s.reshape(-1), torch.from_numpy(b))
+        with jax.disable_jit():
+            codes_j, scale_j = j_q.quantize_symmetric(jnp.asarray(x))
+            out_j = j_q.quantized_dense(jnp.asarray(x), jnp.asarray(w_q.numpy()),
+                                        jnp.asarray(w_s.numpy()), jnp.asarray(b))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(scale_j))
+        np.testing.assert_array_equal(codes.numpy(), np.asarray(codes_j))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(out_j))
+        differ += float(jitted_scale(jnp.asarray(x))) != float(scale)
+    assert differ > 0
 
 
 def test_pack_quantized_deep_layout():

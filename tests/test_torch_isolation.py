@@ -36,8 +36,12 @@ def test_importing_every_port_module_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(REPO)))
+# the rank-side test scripts run where JAX may be absent: torch, numpy and the port only
+RANK_SCRIPTS = [REPO / "tests" / "torch_sharding_ranks.py", REPO / "tests" / "torch_cli_ranks.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+                         + RANK_SCRIPTS, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_sources_import_no_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -153,21 +157,31 @@ def test_deploy_entry_points_default_to_the_card(tmp_path, monkeypatch):
 
 
 def test_sharded_entry_points_default_to_the_card(tmp_path, monkeypatch):
-    """The sharding slice's entry points: ``dryrun_multichip``, ``cli.main_all``
-    with mesh flags and the rank setup go to the card unless asked for the CPU."""
-    from xsdeepfwfm_deprecated_torch.cli import main_all
+    """The sharding slice's entry points: ``dryrun_multichip``, the three
+    training CLIs with mesh flags (``cli.main_all``, ``cli.kd``,
+    ``cli.quantization -quantization_aware 1``) and the rank setup go to the
+    card unless asked for the CPU."""
+    from argparse import Namespace
+
+    from xsdeepfwfm_deprecated_torch.cli import kd, main_all, quantization
+    from xsdeepfwfm_deprecated_torch.cli.ranks import join_ranks
     from xsdeepfwfm_deprecated_torch.entry import dryrun_multichip
     from xsdeepfwfm_deprecated_torch.parallel.mesh import local_rank_setup
     assert local_rank_setup("cpu") == (torch.device("cpu"), "gloo")
+    assert join_ranks(Namespace(mesh_data=1, mesh_model=1), "cpu") == ("cpu", 0)
     assert {"xsdeepfwfm_deprecated_torch.parallel.mesh",
             "xsdeepfwfm_deprecated_torch.parallel.embedding_sharding",
-            "xsdeepfwfm_deprecated_torch.data.sharded_input"} <= set(_port_modules())
+            "xsdeepfwfm_deprecated_torch.data.sharded_input",
+            "xsdeepfwfm_deprecated_torch.cli.ranks"} <= set(_port_modules())
     if torch.cuda.is_available():
         assert local_rank_setup()[0].type == "cuda"
         return
     monkeypatch.chdir(tmp_path)
+    mesh = ["-dataset", "tiny-criteo", "-mesh_data", "2", "-save_model_path", "none"]
     for call in (lambda: dryrun_multichip(2), local_rank_setup,
-                 lambda: main_all.main(["-dataset", "tiny-criteo", "-mesh_data", "2"])):
+                 lambda: main_all.main(["-dataset", "tiny-criteo", "-mesh_data", "2"]),
+                 lambda: kd.main(mesh),
+                 lambda: quantization.main(mesh + ["-quantization_aware", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -13,10 +13,24 @@ a train step as ``test_full_sharded_train_step`` (loss rel 1e-5, tables rtol
 1e-4, atol 1e-6); a fit as ``test_fit_mesh_matches_single_device`` (rtol
 2e-4, atol 2e-5), with dropout on against the port's one-device fit and off
 against JAX's sharded fit, whose random bits differ from torch's.
+
+Distillation and QAT on the mesh (the softmax and the activation scale over
+the global batch): a step's loss and gradients as ``test_torch_kd_qat.py``
+holds ``kd_loss`` to JAX's (loss rtol 1e-5, gradients rtol 1e-4, atol
+1e-7), every QAT scale equal to the one-device port's to the bit; a fit as
+``test_kd_fit_matches_jax_fit`` (rtol 1e-4, atol 2e-5, ``field_cov``'s
+diagonal 1e-3); the command-line programs under ``torch.distributed.run``
+within the CLI tests' 1e-4.
 """
 
 import dataclasses
+import glob
 import logging
+import os
+import pickle
+import subprocess
+import sys
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -27,11 +41,14 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_sharding_ranks as R
+from test_torch_train import assert_trees_close
 from xsdeepfwfm_deprecated_torch import _tree
 from xsdeepfwfm_deprecated_torch.config import TrainConfig as TTrain
 from xsdeepfwfm_deprecated_torch.entry import dryrun_multichip, flagship_config
+from xsdeepfwfm_deprecated_torch.models import deepfwfm as TD
 from xsdeepfwfm_deprecated_torch.parallel.launch import run_ranks
 from xsdeepfwfm_deprecated_torch.train import trainer as TT
+from xsdeepfwfm_deprecated_tpu.compression import distillation as JKD
 from xsdeepfwfm_deprecated_tpu.config import ModelConfig as JConfig
 from xsdeepfwfm_deprecated_tpu.config import TrainConfig as JTrain
 from xsdeepfwfm_deprecated_tpu.models import deepfwfm as JD
@@ -42,6 +59,7 @@ from xsdeepfwfm_deprecated_tpu.train import checkpoint as jckpt
 from xsdeepfwfm_deprecated_tpu.train import trainer as JT
 
 FIT_TOL = dict(rtol=2e-4, atol=2e-5)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUIET = logging.getLogger("test_torch_sharding")
 QUIET.addHandler(logging.NullHandler())
 QUIET.propagate = False
@@ -288,6 +306,178 @@ def test_fit_matches_jax_sharded_fit(ranks, single_fits, exchange):
     np.testing.assert_allclose(got["metrics"], np.array(est.eval_by_batch(xi, xv, y)), **FIT_TOL)
     np.testing.assert_allclose(got["logits"], est._predict_logits(xi, xv), **FIT_TOL)
     np.testing.assert_allclose(got["metrics"], single_fits[False]["metrics"], **FIT_TOL)
+
+
+# ------------------------------------------------------------ KD and QAT
+
+KD_QAT_IDS = [f"{kind}-{ex}" for kind in R.KD_QAT_KINDS for ex in R.KD_QAT_EXCHANGES]
+KD_QAT_KEYS = [(kind, ex) for kind in R.KD_QAT_KINDS for ex in R.KD_QAT_EXCHANGES]
+
+
+def _one_device_kd_qat_step(kind):
+    """(loss, gradients by name, QAT scales) of the port's one-device step and
+    JAX's ``value_and_grad`` of its loss on the whole batch (KD: ``kd_loss``;
+    QAT: the masked mean BCE of the QAT forward)."""
+    cfg, params, batch = R.kd_qat_step_case(kind)
+    jcfg = _jcfg(cfg)
+    b = {k: jnp.asarray(v) for k, v in batch.items() if k != "n_valid"}
+
+    def loss_fn(p):
+        logits = JD.forward(p, b["xi"], b["xv"], jcfg)
+        if kind == "kd":
+            return JKD.kd_loss(logits, b["teacher"], b["y"], b["mask"], alpha=0.9,
+                               temperature=20.0)
+        elem = optax.sigmoid_binary_cross_entropy(logits, b["y"])
+        return jnp.sum(elem * b["mask"]) / jnp.sum(b["mask"])
+
+    loss_j, grads_j = jax.value_and_grad(loss_fn)(_jax(params))
+    scales = []
+    batch_t = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    fwd = partial(TD.forward, amax_fn=R.recording(scales) if kind == "qat" else None)
+    loss_t, _ = TT.loss_and_grads(params, batch_t, cfg, TTrain(**R.TRAIN_KW), forward_fn=fwd,
+                                  teacher_logits=batch_t.get("teacher"))
+    return float(loss_j), jckpt._flatten(grads_j), float(loss_t), scales
+
+
+@pytest.mark.parametrize("key", KD_QAT_KEYS, ids=KD_QAT_IDS)
+def test_kd_and_qat_step_match_jax_on_the_whole_batch(ranks, key):
+    """One KD and one QAT step on the (4, 2) mesh, 10 padded rows at the
+    batch's tail (the last a2a_grid rank holds padding only): the global loss
+    and every reduced gradient against ``jax.value_and_grad`` of the JAX loss
+    over the whole batch; the KD loss's softmax and the QAT scales span every
+    rank's rows. Every QAT activation scale, on every rank, equals the
+    one-device port's to the bit: the abs-max is exact under MAX."""
+    kind, exchange = key
+    loss_j, grads_j, loss_one, scales_one = _one_device_kd_qat_step(kind)
+    got = ranks[0]["kd_qat_steps"][key]
+    assert got["loss"] == pytest.approx(loss_j, rel=1e-5)
+    assert got["loss"] == pytest.approx(loss_one, rel=1e-5)
+    assert set(got["grads"]) == set(grads_j)
+    for name, w in grads_j.items():
+        np.testing.assert_allclose(got["grads"][name], w, rtol=1e-4, atol=1e-7, err_msg=name)
+    assert len(scales_one) == (3 if kind == "qat" else 0)      # the input and 2 hidden layers
+    for res in ranks:
+        assert res["kd_qat_steps"][key]["scales"] == scales_one
+
+
+@pytest.mark.parametrize("key", KD_QAT_KEYS, ids=KD_QAT_IDS)
+def test_kd_and_qat_collectives_span_the_batchs_ranks(ranks, key):
+    """What the loss adds to a step's collectives, over the batch's ranks
+    (the world under a2a_grid, ``data`` under psum): KD, one MAX and one SUM
+    all-reduce of the student's and teacher's (maximum, sum) in the forward
+    and one SUM of their cotangents in the backward, 8 bytes each; QAT, one
+    4-byte MAX all-reduce of each fake-quantized activation."""
+    kind, exchange = key
+    group, size = ("world", 8) if exchange == "a2a_grid" else ("data", 4)
+    small = [(k, g, n, b) for k, g, n, b in ranks[0]["kd_qat_steps"][key]["traffic"]
+             if k == "all-reduce" and g == group]
+    assert small == [("all-reduce", group, size, 8 if kind == "kd" else 4)] * 3
+    for res in ranks[1:]:
+        assert res["kd_qat_steps"][key]["traffic"] == ranks[0]["kd_qat_steps"][key]["traffic"]
+
+
+def _jax_kd_qat_fit(kind, exchange):
+    """JAX's ``fit`` on the (4, 2) mesh from the parameters of the port's case."""
+    cfg, params, teacher_params, xi, xv, y = R.kd_qat_fit_case(kind)
+    teacher = None
+    if teacher_params is not None:
+        teacher = JT.DeepFMEstimator(_jcfg(cfg), JTrain(**R.FIT_KW), logger=QUIET)
+        teacher.params = _jax(teacher_params)
+    est = JT.DeepFMEstimator(_jcfg(cfg), JTrain(**R.FIT_KW, mesh_data=4, mesh_model=2,
+                                                exchange=exchange, table_layout="flat"),
+                             logger=QUIET)
+    est.params = _jax(params)
+    return est.fit(xi, xv, y, teacher_model=teacher), xi, xv
+
+
+@pytest.mark.parametrize("key", KD_QAT_KEYS, ids=KD_QAT_IDS)
+def test_kd_and_qat_fit_match_jax_sharded_fit(ranks, key):
+    """``fit`` with a teacher, and with ``quantization_aware``, on the (4, 2)
+    mesh, dropout off, a padded tail batch, against JAX's ``fit`` on the same
+    mesh and exchange: the student's parameters and the train metrics as
+    ``test_kd_fit_matches_jax_fit``; the teacher's logits are cut into the
+    ranks' rows with the batch. Every rank returns every eval logit."""
+    kind, exchange = key
+    est, _, _ = _jax_kd_qat_fit(kind, exchange)
+    got = ranks[0]["fits"][key]
+    spec = JD.make_embedding_spec(est.mcfg)
+    want = j_mesh.unpad_rows(est.params, spec.dense_rows)
+    assert_trees_close(_tree.rebuild(want, {n: torch.from_numpy(v)
+                                            for n, v in got["params"].items()}),
+                       want, rtol=1e-4, atol=2e-5, field_cov_diag_atol=1e-3)
+    np.testing.assert_allclose(got["metrics"], est.train_result, rtol=0, atol=1e-6)
+    for res in ranks[1:]:
+        np.testing.assert_array_equal(res["fits"][key]["logits"], got["logits"])
+
+
+@pytest.mark.parametrize("exchange", R.KD_QAT_EXCHANGES)
+def test_qat_eval_on_a_mesh_matches_jax(ranks, exchange):
+    """A QAT model's eval depends on its batches: each takes its own scales.
+    The port's eval on the mesh (batches of 128 rows cut over the ranks, the
+    second padded) against JAX's ``_predict_logits`` on the same mesh with
+    the port's trained parameters (rtol 1e-5, atol 1e-6: float32 sums in
+    another order), and against the port's one-device eval of them. Batches
+    of 64 rows give other logits."""
+    cfg, _, _, xi, xv, _ = R.kd_qat_fit_case("qat")
+    got = ranks[0]["fits"][("qat", exchange)]
+    n = R.KD_QAT_EVAL_N
+    trained = {name: torch.from_numpy(v) for name, v in got["params"].items()}
+    est = JT.DeepFMEstimator(_jcfg(cfg), JTrain(**{**R.FIT_KW, "n_epochs": 0}, mesh_data=4,
+                                                mesh_model=2, exchange=exchange,
+                                                table_layout="flat"), logger=QUIET)
+    est.params = _jax(_tree.rebuild(TD.init_params(torch.Generator(), cfg, device="meta"),
+                                    trained))
+    est.fit(xi, xv, np.zeros(len(xi), np.float32))    # no epoch: the mesh and the blocks
+    assert est.mesh is not None
+    np.testing.assert_allclose(got["logits"], est._predict_logits(xi[:n], xv[:n]), rtol=1e-5,
+                               atol=1e-6)
+    one = TT.DeepFMEstimator(cfg, TTrain(**R.FIT_KW), logger=QUIET, device="cpu")
+    one.params = _tree.rebuild(one.init_params(), trained)
+    np.testing.assert_allclose(got["logits"], one._predict_logits(xi[:n], xv[:n]), rtol=1e-5,
+                               atol=1e-6)
+    assert not np.allclose(got["logits"], one._predict_logits(xi[:n], xv[:n], batch_size=64),
+                           rtol=1e-5, atol=1e-6)
+
+
+def test_kd_and_qat_clis_under_torchrun_match_one_process(tmp_path, monkeypatch):
+    """``cli.kd`` and ``cli.quantization -quantization_aware 1`` with
+    ``-mesh_data 2 -mesh_model 2`` on 4 CPU ranks under
+    ``torch.distributed.run`` (gloo), dropout on: both fit on the mesh, and
+    rank 0's benchmarks and trained parameters equal the one-process run's
+    within the CLI tests' 1e-4 (``field_cov``'s diagonal 1e-3)."""
+    from xsdeepfwfm_deprecated_torch.cli import kd, main_all, quantization
+    monkeypatch.chdir(tmp_path)
+    teacher = os.path.abspath(main_all.main(R.CLI_ARGV, device="cpu").save_model_name)
+    monkeypatch.setattr(kd, "STUDENT_DEEP_NODES", 8)             # 400x2 -> 8x2 at these widths
+    flags = R.CLI_ARGV + ["-save_model_path", teacher]
+    _, student = kd.main(flags, device="cpu")
+    qat = quantization.main(flags + ["-quantization_aware", "1"], device="cpu")["qat"]
+    work = tmp_path / "ranks"
+    work.mkdir()
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")])}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "4",
+           os.path.join(os.path.dirname(__file__), "torch_cli_ranks.py"), str(work), teacher,
+           "8"] + R.CLI_ARGV
+    res = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    with open(work / "rank0.pkl", "rb") as f:
+        got = pickle.load(f)
+    logs = "".join(open(p).read() for p in glob.glob(str(work / "logs" / "*.log")))
+    assert "mesh: data=2 model=2" in logs
+    assert got["qat_keys"] == ["original", "qat"]
+    for name, want in (("student", student.benchmark), ("qat", qat["benchmark"])):
+        for key in ("loss", "auc", "prauc", "rce"):
+            assert got[name][key] == pytest.approx(want[key], rel=1e-4, abs=1e-4), (name, key)
+    for name, want in (("student_params", student.params), ("qat_params",
+                                                            qat["estimator"].params)):
+        for leaf, w in _tree.named_leaves(want):
+            g, w = got[name][leaf], w.numpy()
+            if leaf == "field_cov":        # its diagonal trains on rounding noise (ROADMAP.md 3)
+                np.testing.assert_allclose(np.diagonal(g), np.diagonal(w), rtol=1e-4, atol=1e-3)
+                off = ~np.eye(g.shape[0], dtype=bool)
+                g, w = g[off], w[off]
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=f"{name} {leaf}")
 
 
 @pytest.mark.parametrize("axes", ["model", "grid"])

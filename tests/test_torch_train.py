@@ -318,6 +318,36 @@ def test_untouched_rows_change_only_by_l2():
     assert float((after[~untouched] - want[~untouched]).abs().max()) > 1e-5
 
 
+def test_dropout_divides_by_a_tensor_at_rate_0_3():
+    """The kept values are ``x / (1 - p)`` by a 0-d tensor on ``x``'s device:
+    by a Python number PyTorch multiplies by the reciprocal on a CUDA device
+    and divides on the CPU, and at p = 0.3 the two differ in the last bit of
+    some values. Every division the dropout makes is watched."""
+    from torch.overrides import TorchFunctionMode
+
+    class Divisions(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.divisors = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.Tensor.__truediv__, torch.Tensor.div, torch.div):
+                self.divisors.append(args[1])
+            return func(*args, **(kwargs or {}))
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(64, 100)).astype(np.float32))
+    with Divisions() as seen:
+        out = t_mlp.dropout(torch.Generator().manual_seed(0), x, 0.3, True)
+    assert len(seen.divisors) == 1
+    divisor = seen.divisors[0]
+    assert isinstance(divisor, torch.Tensor) and divisor.device == x.device
+    keep_rate = torch.tensor(1.0 - 0.3, dtype=torch.float32)
+    assert divisor.ndim == 0 and torch.equal(divisor, keep_rate)
+    kept = out != 0
+    assert torch.equal(out[kept], x[kept] / keep_rate)
+    assert not torch.equal(x[kept] / keep_rate, x[kept] * (1.0 / keep_rate))
+
+
 def test_dropout_keep_rate_scaling_and_seed():
     """With dropout on the streams differ from JAX's, so check the port's own:
     the keep rate (within five standard errors), the 1/(1-p) scaling, and that

@@ -5,6 +5,7 @@ computes the JAX reference from the same seeded inputs, which it builds with
 the functions below.
 """
 
+import dataclasses
 import logging
 import os
 from functools import partial
@@ -15,7 +16,7 @@ import torch
 from xsdeepfwfm_deprecated_torch import _tree
 from xsdeepfwfm_deprecated_torch.compression import pruning
 from xsdeepfwfm_deprecated_torch.config import ModelConfig, TrainConfig
-from xsdeepfwfm_deprecated_torch.data import sharded_input
+from xsdeepfwfm_deprecated_torch.data import batching, sharded_input
 from xsdeepfwfm_deprecated_torch.models import deepfwfm
 from xsdeepfwfm_deprecated_torch.ops import embedding as emb_ops
 from xsdeepfwfm_deprecated_torch.parallel import embedding_sharding as es
@@ -45,6 +46,13 @@ FIT_CASES = {       # name -> (mesh_data, mesh_model, exchange, dropout)
     "grid_data_only": (8, 1, "a2a_grid", True), "all_remaining_ranks": (0, 2, "psum", True),
     "a2a_grid_no_dropout": (4, 2, "a2a_grid", False), "a2a_no_dropout": (4, 2, "a2a", False),
     "psum_no_dropout": (4, 2, "psum", False)}
+# distillation and QAT on a mesh: the batch's ranks are the world under a2a_grid, `data` under psum
+KD_QAT_EXCHANGES = ("a2a_grid", "psum")
+KD_QAT_KINDS = ("kd", "qat")
+STEP_REAL = STEP_B - 10      # the KD/QAT step's batch: 10 padded rows, one rank's all padding
+KD_QAT_FIT_N = 250           # the KD/QAT fits: a padded tail batch of 58 real rows in 64
+KD_QAT_EVAL_N = 200          # QAT eval: batches of 128 rows, the second padded
+TRAIN_KW = dict(learning_rate=1e-3, weight_decay=0.0, batch_size=STEP_B)
 CLI_ARGV = ["-dataset", "tiny-criteo", "-n_epochs", "1", "-batch_size", "1024",
             "-deep_nodes", "16", "-h_depth", "2", "-embedding_size", "4", "-use_fwlw", "1"]
 
@@ -89,6 +97,41 @@ def fit_case(dropout=True, n=256):
     xv = rng.normal(size=(n, 3)).astype(np.float32)
     y = (rng.random(n) < 0.3).astype(np.float32)
     return cfg, params, xi, xv, y
+
+
+def kd_qat_step_case(kind):
+    """(cfg, params, batch) of one KD or QAT step: step_case's model (QAT:
+    ``quantization_aware``), dropout off, its batch cut to STEP_REAL real rows
+    and padded as ``fit`` pads a tail batch, and for KD the teacher's logits
+    (seeded; zero on the padded rows, as ``fit`` pads them)."""
+    cfg, params, full = step_case()
+    cfg = dataclasses.replace(cfg, quantization_aware=kind == "qat")
+    batch = next(batching.iter_batches(full["xi"][:STEP_REAL], full["xv"][:STEP_REAL],
+                                       full["y"][:STEP_REAL], STEP_B))
+    if kind == "kd":
+        teacher = np.random.default_rng(14).normal(size=STEP_B).astype(np.float32) * 3
+        batch["teacher"] = np.where(batch["mask"] > 0, teacher, 0).astype(np.float32)
+    return cfg, params, batch
+
+
+def kd_qat_fit_case(kind):
+    """(cfg, student params, teacher params or None, xi, xv, y) of a KD or QAT
+    fit: fit_case's model and rows, dropout off, KD_QAT_FIT_N rows; the KD
+    student starts from other parameters than the teacher's."""
+    cfg, params, xi, xv, y = fit_case(dropout=False, n=KD_QAT_FIT_N)
+    if kind == "qat":
+        return dataclasses.replace(cfg, quantization_aware=True), params, None, xi, xv, y
+    student = deepfwfm.init_params(torch.Generator().manual_seed(6), cfg, device="cpu")
+    return cfg, student, params, xi, xv, y
+
+
+def recording(scales, amax_fn=None):
+    """An ``amax_fn`` that appends each scale's abs-max to ``scales``."""
+    def record(amax):
+        out = amax if amax_fn is None else amax_fn(amax)
+        scales.append(float(out))
+        return out
+    return record
 
 
 def fit(cfg, params, xi, xv, y, device="cpu", **train_kw):
@@ -159,6 +202,43 @@ def _steps(rank):
     return out
 
 
+def _kd_qat_steps(rank):
+    """One KD and one QAT loss-and-gradient step on the (4, 2) mesh under
+    a2a_grid and psum: the global loss, the reduced gradients gathered whole,
+    the collectives, and (QAT) every activation abs-max the tower took."""
+    mesh = mesh_mod.make_mesh(4, 2, device="cpu")
+    tc = TrainConfig(**TRAIN_KW)
+    out = {}
+    for kind in KD_QAT_KINDS:
+        cfg, params, batch = kd_qat_step_case(kind)
+        spec = deepfwfm.make_embedding_spec(cfg)
+        for exchange in KD_QAT_EXCHANGES:
+            lookup, axes, _, both = es.setup_exchange(mesh, spec, exchange)
+            batch_axes = mesh_mod.batch_axes(both)
+            group = mesh_mod.BatchGroup(mesh, batch_axes)
+            local = mesh_mod.shard_params(_tree.tree_map(torch.clone, params), mesh, axes)
+            rows = mesh_mod.shard_batch({**batch, "count": np.asarray(STEP_REAL, np.float32)},
+                                        mesh, batch_axes, STEP_B)
+            rows = {k: torch.from_numpy(np.asarray(v)) for k, v in rows.items()}
+            scales = []
+            fwd = partial(deepfwfm.forward, lookup_fn=lookup,
+                          amax_fn=recording(scales, group.max) if kind == "qat" else None)
+            mesh.traffic.clear()
+            loss, grads = trainer.loss_and_grads(local, rows, cfg, tc, forward_fn=fwd, group=group,
+                                                 teacher_logits=rows.get("teacher"))
+            loss_traffic = list(mesh.traffic)
+            mesh_mod.reduce_gradients(mesh, grads, list(mesh_mod.param_shardings(
+                local, axes).values()), batch_axes)
+            names = [n for n, _ in _tree.named_leaves(local)]
+            full = mesh_mod.gather_params(_tree.rebuild(local, dict(zip(names, grads))), mesh,
+                                          axes, spec.dense_rows)
+            out[(kind, exchange)] = dict(
+                loss=float(mesh.all_reduce(loss, batch_axes)), scales=scales,
+                grads=numpy_tree(full) if rank == 0 else None, traffic=loss_traffic,
+                group=mesh_mod.batch_axes(both))
+    return out
+
+
 def threshold_case():
     """Tables above the bisection size (5,003 dense rows of 4, a replicated
     q table) and the sparsity targets of the threshold cases."""
@@ -219,6 +299,26 @@ def _fits(rank, workdir):
     out["loaded_sharded"] = dict(rows=est.params["emb2"]["dense"].shape[0],
                                  proba=est.predict_proba(xi[:64], xv[:64]))
 
+    # distillation and QAT, dropout off: the student's tree, the metrics, every step's loss;
+    # for QAT the eval logits of KD_QAT_EVAL_N rows (a padded second batch)
+    for kind in KD_QAT_KINDS:
+        cfg, params, teacher_params, xi, xv, y = kd_qat_fit_case(kind)
+        teacher = None
+        if teacher_params is not None:
+            teacher = trainer.DeepFMEstimator(cfg, TrainConfig(**FIT_KW), logger=QUIET,
+                                              device="cpu")
+            teacher.params = _tree.tree_map(torch.clone, teacher_params)
+        for exchange in KD_QAT_EXCHANGES:
+            est = trainer.DeepFMEstimator(cfg, TrainConfig(**FIT_KW, mesh_data=4, mesh_model=2,
+                                                           exchange=exchange),
+                                          logger=QUIET, device="cpu")
+            est.params = _tree.tree_map(torch.clone, params)
+            est.fit(xi, xv, y, teacher_model=teacher)
+            res = dict(metrics=np.array(est.train_result), losses=est.last_epoch_losses,
+                       logits=est._predict_logits(xi[:KD_QAT_EVAL_N], xv[:KD_QAT_EVAL_N]),
+                       params=numpy_tree(est.gather_params()))
+            out[(kind, exchange)] = res if rank == 0 else {**res, "params": None}
+
     tcfg = TrainConfig(n_epochs=1, batch_size=60, mesh_data=4, mesh_model=2)
     try:
         trainer.DeepFMEstimator(cfg, tcfg, logger=QUIET, device="cpu").fit(xi[:64], xv[:64], y[:64])
@@ -246,6 +346,7 @@ def rank_cases(rank, device, workdir):
            "files": sharded_input.shard_files([f"f{i}" for i in range(19)])}
     out["lookups"] = _lookups(rank)
     out["steps"] = _steps(rank)
+    out["kd_qat_steps"] = _kd_qat_steps(rank)
     out["thresholds"] = _thresholds(rank)
     out["fits"] = _fits(rank, workdir)
     out["cli"] = _cli(rank, workdir)

@@ -25,34 +25,26 @@ on its card, and the other ranks return their estimator after the fit.
 
 from __future__ import annotations
 
-import logging
 import os
 import random
 from datetime import datetime
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from ..config import get_parser
 from ..data.datasets import get_dataset
 from ..device import DeviceLike
 from ..models.factory import get_model
-from ..parallel.mesh import init_distributed, local_rank_setup
 from ..train.recovery import fit_with_recovery
 from ..utils.debug import nan_debugging
-from ..utils.logging import get_logger
+from .ranks import join_ranks, rank_logger
 
 
 def main(argv=None, device: DeviceLike = None, data_dir: str = None):
     """``data_dir`` replaces the repo's ``data/`` as the datasets' root."""
     pars = get_parser().parse_args(argv)
-    if pars.mesh_data != 1 or pars.mesh_model != 1:
-        device, backend = local_rank_setup(device)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        init_distributed(backend)
-    rank = dist.get_rank() if dist.is_initialized() else 0
+    device, rank = join_ranks(pars, device)
 
     np.random.seed(pars.random_seed)
     random.seed(pars.random_seed)
@@ -72,12 +64,7 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None):
         save_model_name = names[0]
     os.makedirs(os.path.dirname(save_model_name), exist_ok=True)
 
-    if rank == 0:
-        logger = get_logger(os.path.basename(save_model_name))
-    else:
-        logger = logging.getLogger(f"{__name__}.rank{rank}")
-        logger.addHandler(logging.NullHandler())
-        logger.propagate = False
+    logger = rank_logger(os.path.basename(save_model_name), rank)
     logger.info(pars)
 
     logger.info("GET DATASET")

@@ -15,6 +15,11 @@ Each mode benchmarks the original and quantized model and saves the quantized
 artifact under the reference's ``_dynamic_quant`` / ``_static_quant`` /
 ``_quant_aware`` suffixes, in the JAX package's key format
 (``section::a/b/0/c``), so either package loads the other's artifacts.
+
+With ``-mesh_data``/``-mesh_model`` under ``torchrun`` (see ``cli.main_all``)
+the QAT run fits on the mesh, its activation scales taken over the global
+batch. Rank 0 measures the loaded model, the post-training modes and the
+converted QAT model on its device; the other ranks only fit and save.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..models.factory import get_model
 from ..ops.cuda.int8_mlp import int8_mlp
 from ..serving.benchmark import run_benchmark
 from ..serving.predictor import Predictor
-from ..utils.logging import get_logger
+from .ranks import join_ranks, rank_logger
 
 
 def load_quantized(path: str, cfg, mode: str = "dynamic",
@@ -56,9 +61,12 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None) -> Dict[str
     """Returns, for every model it measured (``original``, ``dynamic``,
     ``static``, ``qat``): its benchmark results under ``benchmark``, the model
     under ``model`` and, under ``tower_launches``, how often the fused int8
-    tower kernel was launched while it was measured."""
+    tower kernel was launched while it was measured. The QAT run's estimator
+    is under ``qat``/``estimator``; on a mesh the ranks other than 0 measure
+    nothing and return only that."""
     pars = get_parser().parse_args(argv)
-    logger = get_logger("Quantization")
+    device, rank = join_ranks(pars, device)
+    logger = rank_logger("Quantization", rank)
     logger.info(pars)
 
     field_size, train_dict, valid_dict, test_dict = get_dataset(
@@ -68,9 +76,6 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None) -> Dict[str
         logger.info("no model path given: -save_model_path")
         sys.exit(1)
 
-    model = get_model(field_size=field_size, feature_sizes=train_dict["feature_sizes"],
-                      pars=pars, logger=logger, device=device)
-    model.load(pars.save_model_path, strict=not pars.prune)
     test = (test_dict["index"], test_dict["value"], test_dict["label"])
     results: Dict[str, Dict] = {}
 
@@ -85,27 +90,31 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None) -> Dict[str
                                                 logger=logger))
         logger.info(f"\tFused int8 tower launches: {results[name]['tower_launches']}")
 
-    logger.info("Original model:")
-    model.print_size_of_model()
-    measure("original", model, lambda: model.run_benchmark(*test))
+    if rank == 0:       # on a mesh, rank 0 measures the loaded model and its int8 forms
+        model = get_model(field_size=field_size, feature_sizes=train_dict["feature_sizes"],
+                          pars=pars, logger=logger, device=device)
+        model.load(pars.save_model_path, strict=not pars.prune)
+        logger.info("Original model:")
+        model.print_size_of_model()
+        measure("original", model, lambda: model.run_benchmark(*test))
 
-    if pars.dynamic_quantization:
-        qm = Q.convert(model.params, model.mcfg, mode="dynamic")
-        logger.info("Dynamic Quantization model:")
-        measure_quantized("dynamic", qm)
-        _save_quantized(qm, pars.save_model_path + "_dynamic_quant")
+        if pars.dynamic_quantization:
+            qm = Q.convert(model.params, model.mcfg, mode="dynamic")
+            logger.info("Dynamic Quantization model:")
+            measure_quantized("dynamic", qm)
+            _save_quantized(qm, pars.save_model_path + "_dynamic_quant")
 
-    if pars.static_quantization:
-        calib = model.tcfg.batch_size * 5      # reference :94
-        xi = np.asarray(train_dict["index"][:calib], np.int32)
-        xv = np.asarray(train_dict["value"][:calib], np.float32)
-        scales = Q.calibrate(model.params, model.mcfg, xi, xv,
-                             n_batches=5, batch_size=model.tcfg.batch_size)
-        logger.info("Post Static Quantization: Calibration done")
-        qm = Q.convert(model.params, model.mcfg, mode="static", act_scales=scales)
-        logger.info("Post Static Quantization model:")
-        measure_quantized("static", qm)
-        _save_quantized(qm, pars.save_model_path + "_static_quant")
+        if pars.static_quantization:
+            calib = model.tcfg.batch_size * 5      # reference :94
+            xi = np.asarray(train_dict["index"][:calib], np.int32)
+            xv = np.asarray(train_dict["value"][:calib], np.float32)
+            scales = Q.calibrate(model.params, model.mcfg, xi, xv,
+                                 n_batches=5, batch_size=model.tcfg.batch_size)
+            logger.info("Post Static Quantization: Calibration done")
+            qm = Q.convert(model.params, model.mcfg, mode="static", act_scales=scales)
+            logger.info("Post Static Quantization model:")
+            measure_quantized("static", qm)
+            _save_quantized(qm, pars.save_model_path + "_static_quant")
 
     if pars.quantization_aware:
         qat_model = get_model(field_size=field_size,
@@ -118,8 +127,12 @@ def main(argv=None, device: DeviceLike = None, data_dir: str = None) -> Dict[str
                       prune_r=bool(pars.prune_r), prune_deep=bool(pars.prune_deep),
                       emb_r=pars.emb_r, emb_corr=pars.emb_corr)
         qat_model.save(pars.save_model_path + "_quant_aware")
+        qat_model.unshard()     # collective on a mesh: rank 0 converts the whole model
+        if rank != 0:
+            return {"qat": {"estimator": qat_model}}
         logger.info("Quantization Aware model:")
         measure_quantized("qat", Q.convert(qat_model.params, qat_model.mcfg, mode="qat"))
+        results["qat"]["estimator"] = qat_model
     return results
 
 

@@ -10,6 +10,7 @@ layout and leaf names (``emb2/dense``, ``deep/net_1/layers/0/w`` as
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, Optional
 
 import torch
@@ -21,6 +22,7 @@ from ..ops import embedding as emb_ops
 from ..ops import interactions as inter_ops
 from ..ops import mlp as mlp_ops
 from ..ops.embedding import PackedEmbeddingSpec
+from ..ops.quantized import AmaxFn
 
 
 def make_embedding_spec(cfg: ModelConfig) -> PackedEmbeddingSpec:
@@ -82,9 +84,12 @@ LookupFn = Callable[[Dict, PackedEmbeddingSpec, torch.Tensor, torch.Tensor], tor
 
 def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, *,
             train: bool = False, generator: Optional[torch.Generator] = None,
-            lookup_fn: Optional[LookupFn] = None) -> torch.Tensor:
+            lookup_fn: Optional[LookupFn] = None,
+            amax_fn: Optional[AmaxFn] = None) -> torch.Tensor:
     """(xi int (B, C), xv f32 (B, Nnum)) → logits (B,). ``lookup_fn``
-    replaces the packed-table gather (the serving form, for example)."""
+    replaces the packed-table gather (the serving form, for example);
+    ``amax_fn`` takes the QAT tower's activation abs-max over the whole batch
+    when these are one rank's rows of it (``ops.mlp.qat_mlp_forward``)."""
     spec = make_embedding_spec(cfg)
     lookup = lookup_fn or emb_ops.packed_lookup
     b = xi.shape[0]
@@ -124,7 +129,8 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
         rates = ((cfg.dropout_deep,) if cfg.is_deep_dropout else (0.0,)) * (cfg.h_depth + 1)
         deep_fn = mlp_ops.mlp_forward
         if cfg.quantization_aware:      # the QAT tower quantizes the flat activation vector
-            deep_in, deep_fn = deep_in.reshape(b, -1), mlp_ops.qat_mlp_forward
+            deep_in = deep_in.reshape(b, -1)
+            deep_fn = partial(mlp_ops.qat_mlp_forward, amax_fn=amax_fn)
         for n in range(1, cfg.num_deeps + 1):
             x_deep = deep_fn(params["deep"][f"net_{n}"], deep_in, dropout_rates=rates,
                              train=train, generator=generator)

@@ -14,8 +14,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
-from ..device import scaled_normal
-from .quantized import fake_quant_per_tensor
+from ..device import constant, scaled_normal
+from .quantized import AmaxFn, fake_quant_per_tensor
 
 
 @dataclass(frozen=True)
@@ -34,7 +34,10 @@ class BatchShard:
 def dropout(generator: Union[torch.Generator, BatchShard, None], x: torch.Tensor, rate: float,
             train: bool) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-p) at train time). The keep mask is
-    drawn from ``generator`` on its own device, then moved to ``x``'s."""
+    drawn from ``generator`` on its own device, then moved to ``x``'s. The
+    kept values are divided by a 0-d tensor on ``x``'s device: by a Python
+    number PyTorch multiplies by the reciprocal on a CUDA device, which the
+    CPU does not."""
     if not train or rate <= 0.0 or generator is None:
         return x
     if isinstance(generator, BatchShard):
@@ -44,7 +47,8 @@ def dropout(generator: Union[torch.Generator, BatchShard, None], x: torch.Tensor
     else:
         u = torch.rand(x.shape, generator=generator, device=generator.device)
     keep = (u < 1.0 - rate).to(x.device)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    keep_rate = constant((1.0 - rate,), x.dtype, x.device).reshape(())
+    return torch.where(keep, x / keep_rate, torch.zeros_like(x))
 
 
 def init_mlp(generator: torch.Generator, in_dim: int, hidden: Sequence[int],
@@ -87,13 +91,16 @@ def mlp_forward(net: Dict, x: torch.Tensor, *, dropout_rates: Sequence[float],
 
 
 def qat_mlp_forward(net: Dict, x: torch.Tensor, *, dropout_rates: Sequence[float],
-                    train: bool = False, generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    train: bool = False, generator: Optional[torch.Generator] = None,
+                    amax_fn: Optional[AmaxFn] = None) -> torch.Tensor:
     """The tower with fake-quant on its input, weights and activations (QAT),
     (B, in_dim) → (B, 1). Each scale is the current tensor's abs-max, outside
-    the gradient (straight-through)."""
-    x = dropout(generator, fake_quant_per_tensor(x), dropout_rates[0], train)
+    the gradient (straight-through). ``amax_fn`` takes the activations'
+    abs-max over the whole batch when ``x`` is one rank's rows of it (the
+    maximum over the batch's ranks); the weights are replicated and keep
+    their own."""
+    x = dropout(generator, fake_quant_per_tensor(x, amax_fn), dropout_rates[0], train)
     for i, layer in enumerate(net["layers"]):
         x = torch.relu(x @ fake_quant_per_tensor(layer["w"]) + layer["b"])
-        x = dropout(generator, fake_quant_per_tensor(x), dropout_rates[i + 1], train)
+        x = dropout(generator, fake_quant_per_tensor(x, amax_fn), dropout_rates[i + 1], train)
     return x @ fake_quant_per_tensor(net["fc_w"])

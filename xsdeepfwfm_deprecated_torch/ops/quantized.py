@@ -18,13 +18,14 @@ model's device), so a call converts only the activations.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..device import exact_div
 
 EXACT_K = (1 << 24) // (127 * 127)   # 1040: the longest exact float32 chunk
+AmaxFn = Callable[[torch.Tensor], torch.Tensor]   # local abs-max -> the batch's
 
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:
@@ -142,7 +143,10 @@ def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return _FakeQuant.apply(x, scale)
 
 
-def fake_quant_per_tensor(x: torch.Tensor) -> torch.Tensor:
+def fake_quant_per_tensor(x: torch.Tensor, amax_fn: Optional[AmaxFn] = None) -> torch.Tensor:
     """:func:`fake_quant` with the scale from this tensor's abs-max, taken
-    outside the gradient."""
-    return fake_quant(x, _scale_of(x.detach().abs().max()))
+    outside the gradient. ``amax_fn`` maps the local abs-max to the one the
+    scale is taken from (on a mesh, its maximum over the batch's ranks, which
+    is exact, so the scale is the one-device scale to the bit)."""
+    amax = x.detach().abs().max()
+    return fake_quant(x, _scale_of(amax if amax_fn is None else amax_fn(amax)))

@@ -37,6 +37,7 @@ collectives of JAX's compiled step.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -304,6 +305,44 @@ def shard_batch(batch: Dict, mesh: Mesh, axes: Axes, batch_size: int) -> Dict:
     rows = batch_rows(mesh, axes, batch_size)
     return {k: (v[rows] if isinstance(v, np.ndarray) and v.ndim and v.shape[0] == batch_size
                 else v) for k, v in batch.items()}
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """A SUM all-reduce whose backward is a SUM all-reduce of the cotangent
+    over the same ranks: every rank's loss depends on every rank's summand,
+    so the gradient of a summand gathers the cotangents of all of them. (The
+    lookup exchange's identity backward is right for its own use only: there
+    each rank's loss reads its own rows.)"""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.all_reduce(t.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axes), None, None
+
+
+@dataclass(frozen=True)
+class BatchGroup:
+    """The ranks that hold the rows of one global batch (``axes``: the world
+    under the all-to-all exchanges, ``data`` under psum). What spans the whole
+    batch, the distillation loss's softmax and QAT's activation scale, is
+    reduced over them; each collective is recorded in ``Mesh.traffic``."""
+
+    mesh: Mesh
+    axes: Axes
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum of ``t`` over the ranks, outside the gradient (exact:
+        the one-device maximum of the same rows, to the bit)."""
+        return self.mesh.all_reduce(t.detach().clone(), self.axes, op=dist.ReduceOp.MAX)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, with a gradient (see
+        :class:`_SumOverRanks`)."""
+        return _SumOverRanks.apply(t, self.mesh, self.axes)
 
 
 def reduce_gradients(mesh: Mesh, grads: Sequence[torch.Tensor],

@@ -40,16 +40,19 @@ every global batch. What JAX's compiler does implicitly is written out:
   rows; eval gathers the logits, so every rank returns them all; ``save``
   gathers and unpads the tree and rank 0 writes it; ``load`` and
   ``resume_from`` read the whole checkpoint on every rank, which keeps its
-  blocks, into any mesh shape.
+  blocks, into any mesh shape;
+* what spans the whole batch spans the batch's ranks
+  (``parallel.mesh.BatchGroup``): the distillation loss's softmax over the
+  batch (``compression.distillation.kd_loss``) and the QAT tower's
+  activation scale, in training and in eval (``ops.mlp.qat_mlp_forward``).
+  The teacher's logits are cut into the ranks' rows with the batch.
 
 Not ported, because they are dispatch and layout forms with the same
 results: the K-steps-per-dispatch scan (``:88-159``), the scanned eval
 (``:171-195``) and super-row table packing, for one device and on a mesh.
 ``steps_per_call > 1`` runs plain per-batch steps on the same prune
 schedule, and ``table_layout="super"`` and ``mesh_table_layout="super"``
-train the flat table. Knowledge distillation and quantization-aware training
-on a mesh are not ported (their softmax and activation scale span the whole
-batch) and raise.
+train the flat table.
 """
 
 from __future__ import annotations
@@ -176,18 +179,20 @@ ForwardFn = Callable[..., torch.Tensor]
 def batch_loss(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig, *,
                generator: Optional[torch.Generator] = None,
                teacher_logits: Optional[torch.Tensor] = None,
-               forward_fn: ForwardFn = deepfwfm.forward) -> torch.Tensor:
+               forward_fn: ForwardFn = deepfwfm.forward,
+               group: Optional[mesh_mod.BatchGroup] = None) -> torch.Tensor:
     """The train-mode loss of one batch: the masked mean BCE (the per-batch
     ``binary_cross_entropy_with_logits`` mean on an unpadded batch), or the
     KD loss when the teacher's logits are given. A rank's shard of a global
     batch carries ``batch["count"]``, the global batch's number of real rows
     as a 0-d tensor: its masked sum divided by that, so that the ranks'
-    losses sum to the global mean."""
+    losses sum to the global mean; ``group`` (the batch's ranks) is where the
+    KD loss takes its softmax."""
     logits = forward_fn(params, batch["xi"], batch["xv"], mcfg, train=True, generator=generator)
     y, mask = batch["y"], batch["mask"]
     if teacher_logits is not None:
         return kd_loss(logits, teacher_logits, y, mask, alpha=tcfg.kd_alpha,
-                       temperature=tcfg.kd_temperature)
+                       temperature=tcfg.kd_temperature, group=group, count=batch.get("count"))
     elem = F.binary_cross_entropy_with_logits(logits, y, reduction="none")
     count = batch["count"] if "count" in batch else mask.sum().clamp(min=1.0)
     return (elem * mask).sum() / count
@@ -293,8 +298,7 @@ class DeepFMEstimator:
         group is missing or has another number of ranks."""
         tc = self.tcfg
         if tc.mesh_data == 1 and tc.mesh_model == 1:
-            self.mesh, self._lookup_fn = None, None
-            self._table_axes, self._table_shards, self._batch_both = mesh_mod.MODEL_AXIS, 1, False
+            self._leave_mesh()
             return None
         data = None if tc.mesh_data == 0 else tc.mesh_data
         mesh = self.mesh
@@ -308,6 +312,22 @@ class DeepFMEstimator:
                                                self._exchange())
         self.mesh = mesh
         return mesh
+
+    def _leave_mesh(self) -> None:
+        self.mesh, self._lookup_fn = None, None
+        self._table_axes, self._table_shards, self._batch_both = mesh_mod.MODEL_AXIS, 1, False
+
+    def unshard(self) -> "DeepFMEstimator":
+        """Gather the row blocks of a sharded fit and leave the mesh
+        (collective): from then on the estimator predicts, reports, saves and
+        benchmarks the whole model on its own device, as after a one-device
+        fit. The command-line programs call it on every rank after the fit, so
+        that rank 0 measures the model while the others return."""
+        if self.mesh is not None:
+            self.params, self.opt_state = self.gather_params(), self._full(self.opt_state)
+            self._blocks = False
+            self._leave_mesh()
+        return self
 
     def _exchange(self) -> str:
         return self.tcfg.exchange
@@ -323,6 +343,10 @@ class DeepFMEstimator:
 
     def _batch_axes(self) -> mesh_mod.Axes:
         return mesh_mod.batch_axes(self._batch_over_both_axes())
+
+    def _batch_group(self) -> Optional[mesh_mod.BatchGroup]:
+        """The ranks that hold one global batch's rows; None on one device."""
+        return None if self.mesh is None else mesh_mod.BatchGroup(self.mesh, self._batch_axes())
 
     def _shard_state(self) -> None:
         """Pad the dense tables to the shard count and keep this rank's row
@@ -349,9 +373,15 @@ class DeepFMEstimator:
         return self._full(self.params)
 
     def _forward_fn(self) -> ForwardFn:
-        """``model_forward`` with the exchange's lookup bound, on a mesh."""
+        """``model_forward`` with, on a mesh, the exchange's lookup bound and
+        a QAT tower's activation abs-max taken over the batch's ranks."""
         fwd = type(self).model_forward
-        return partial(fwd, lookup_fn=self._lookup_fn) if self._lookup_fn is not None else fwd
+        kw: Dict[str, Any] = {}
+        if self._lookup_fn is not None:
+            kw["lookup_fn"] = self._lookup_fn
+        if self.mesh is not None and self.mcfg.quantization_aware:
+            kw["amax_fn"] = self._batch_group().max
+        return partial(fwd, **kw) if kw else fwd
 
     def _reducer(self) -> Callable[[List[torch.Tensor]], None]:
         """The gradient reduction of this rank's sharded step: each leaf summed
@@ -445,10 +475,6 @@ class DeepFMEstimator:
                     f"batch_size {tc.batch_size} not divisible by the {n_shards} batch shards of "
                     f"mesh (data={mesh.data}, model={mesh.model}) with "
                     f"exchange={self._exchange()!r}")
-            if teacher_model is not None or self.mcfg.quantization_aware:
-                raise ValueError("knowledge distillation and quantization-aware training are not "
-                                 "ported to a mesh: their softmax and activation scale span the "
-                                 "whole batch; train them with mesh_data = mesh_model = 1")
         forward_fn = self._forward_fn()
         counts = deepfwfm.param_group_counts(self.params, self.mcfg)
         self._log("========")
@@ -460,7 +486,7 @@ class DeepFMEstimator:
         rng_np = np.random.default_rng(tc.random_seed)
         generator = torch.Generator(device=self.device).manual_seed(tc.random_seed + 1)
         step_generator: Any = generator
-        reduce = None
+        reduce, group = None, self._batch_group()
         if mesh is not None:
             self._shard_state()
             self._log(f"mesh: data={mesh.data} model={mesh.model} exchange={self._exchange()} "
@@ -500,7 +526,7 @@ class DeepFMEstimator:
                 epoch_losses.append(train_step(
                     self.params, self.opt_state, batch, self.mcfg, tc, optimizer, reduce=reduce,
                     generator=step_generator, teacher_logits=batch.get("teacher"),
-                    forward_fn=forward_fn))
+                    forward_fn=forward_fn, group=group))
                 if debug.finite_checks_enabled():
                     debug.require_finite(epoch_losses[-1], f"the loss of step {self._step}")
                 self._step += 1
