@@ -60,6 +60,13 @@ Phases, each printed on its own line:
      unsharded one, and the bytes of each collective a step. On four cards, also cli.main_all,
      cli.kd and cli.quantization -quantization_aware 1 under torchrun over NCCL.
      --sharded-only runs phases 1 to 3 and this one, without the result lines
+ 18. quality at scale through xsdeepfwfm_deprecated_torch.tools: 1M synthetic rows at the
+     full-Criteo cardinalities (seed 0): the oracle test AUC equals the JAX package's record;
+     one dense epoch reaches the AUC floor; DeepLight (warm 1, 1 pruned epoch, Omega 0.5)
+     reaches its DNN and embedding sparsities; int8_auc_parity serves the dense checkpoint in
+     fp32, int8 layerwise and int8 fused, the fused tower launching once per 8192-row batch,
+     equal to its plain version, the fused AUC within 2e-4 of fp32.
+     --scale-only runs phases 1 to 3 and this one, without the result lines
 then one JSON line of per-kernel results, the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1553,6 +1560,108 @@ def sharded_phase(args, cfg, card: str) -> dict:
             "max_abs_err_sharded": max(tower_err, qat_tower_err)}
 
 
+SCALE_ROWS = 1_000_000
+SCALE_ORACLE_AUC = 0.8667      # the oracle test AUC of these rows (seed 0), as the JAX package's
+                               # run recorded it: the rows are the same, so to 4 digits
+SCALE_DENSE_AUC = 0.825        # least test AUC after one dense epoch (JAX: valid e1 0.8302)
+SCALE_DNN_SPARSITY = 89.0      # least DNN sparsity after 391 pruned steps at Omega 0.5 (target 89.96%)
+SCALE_EMB_SPARSITY = (40.0, 0.5)   # embedding sparsity, and how far from it
+SCALE_FUSED_GAP = 2e-4         # most fused-vs-fp32 test AUC gap
+
+
+def scale_phase(card: str) -> dict:
+    """Phase 18: quality at scale through ``xsdeepfwfm_deprecated_torch.tools``.
+    Returns what the kernels line reports of the int8 tower on this path."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from xsdeepfwfm_deprecated_torch.compression.quantization import (
+        convert, quantized_lookup_serving)
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp, int8_mlp_reference
+    from xsdeepfwfm_deprecated_torch.tools import int8_auc_parity, synthetic_scale_run
+    from xsdeepfwfm_deprecated_torch.weights import load_jax_checkpoint
+
+    where = f"[{card}]"
+
+    def tool(main, argv):
+        """A tool's main on the card; its JSON lines are printed indented, so
+        that no line but the result lines starts with a brace."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ret = main(argv)
+        torch.cuda.synchronize()
+        for line in out.getvalue().splitlines():
+            print(f"  {line}")
+        return ret, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    cache, save = os.path.join(tmp.name, "synth1m.npz"), os.path.join(tmp.name, "synth1m")
+    common = ["--rows", str(SCALE_ROWS), "--full-criteo-dims", "--seed", "0", "--cache", cache,
+              "--eval-train-rows", "100000"]
+    int8_mlp.launches = 0
+    (oracle, (dense,), _), dense_s = tool(synthetic_scale_run.main,
+                                          common + ["--epochs", "1", "--save", save])
+    check(f"{oracle:.4f}" == f"{SCALE_ORACLE_AUC:.4f}",
+          f"oracle test AUC {oracle:.6f}, the JAX package's {SCALE_ORACLE_AUC}")
+    check(dense["test_auc"] >= SCALE_DENSE_AUC,
+          f"one dense epoch reached test AUC {dense['test_auc']} < {SCALE_DENSE_AUC}")
+    (_, (light,), _), light_s = tool(synthetic_scale_run.main, common + [
+        "--deeplight", "--warm", "1", "--prune-epochs", "1", "--prune-omega", "0.5"])
+    want_emb, emb_tol = SCALE_EMB_SPARSITY
+    check(light["dnn_sparsity_pct"] >= SCALE_DNN_SPARSITY
+          and abs(light["emb_sparsity_pct"] - want_emb) <= emb_tol,
+          f"DeepLight sparsity: DNN {light['dnn_sparsity_pct']}%, embeddings "
+          f"{light['emb_sparsity_pct']}%")
+    check(int8_mlp.launches == 0, "the fp32 fits launched the int8 tower")
+    parity, parity_s = tool(int8_auc_parity.main,
+                            ["--checkpoint", save + "_dense", "--cache", cache])
+    launches = int8_mlp.launches
+    n_test = SCALE_ROWS // 10
+    n_batches = -(-n_test // BATCH)
+    check(launches == n_batches,
+          f"the fused tower launched {launches} times for {n_batches} batches of {BATCH}")
+    gap = parity["fused_vs_fp32_auc_gap"]
+    check(abs(gap) <= SCALE_FUSED_GAP, f"fused-vs-fp32 AUC gap {gap}")
+
+    # the kernel on the scale path's first batch against its plain version
+    # (launches made here are not the path's)
+    z = np.load(cache)
+    xi, xv = z["xi"][:BATCH], z["xv"][:BATCH]
+    cfg = int8_auc_parity.model_config(z["feature_sizes"].tolist(), xv.shape[1])
+    qm = convert(load_jax_checkpoint(save + "_dense", cfg), cfg, mode="dynamic")
+    dev = qm.params_fp["bias"].device
+    with torch.inference_mode():
+        x = quantized_lookup_serving(qm.emb2_q, deepfwfm.make_embedding_spec(cfg),
+                                     torch.from_numpy(xi).to(dev), torch.from_numpy(xv).to(dev))
+        x = x.reshape(BATCH, -1).contiguous()
+        layers, fc = qm.fused_tower
+        tower_err = float((int8_mlp(x, layers, fc) - int8_mlp_reference(x, layers, fc))
+                          .abs().max())
+    check(tower_err <= TOL, f"int8_mlp vs plain version on the scale path: {tower_err}")
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    phase(18, f"quality at scale: {SCALE_ROWS:,} synthetic rows at full-Criteo dims, seed 0, "
+              f"{phase_s:.1f} s {where}")
+    print(f"  oracle test AUC {oracle:.4f} (the JAX package's record: {SCALE_ORACLE_AUC})")
+    print(f"  dense, 1 epoch ({dense_s:.1f} s with the data): test AUC {dense['test_auc']} "
+          f"(at least {SCALE_DENSE_AUC}), logloss {dense['test_logloss']}")
+    print(f"  DeepLight, warm 1 + 1 pruned epoch at Omega 0.5 ({light_s:.1f} s): test AUC "
+          f"{light['test_auc']}, DNN sparsity {light['dnn_sparsity_pct']}% (at least "
+          f"{SCALE_DNN_SPARSITY}), embeddings {light['emb_sparsity_pct']}% ({want_emb} +- "
+          f"{emb_tol}), total {light['sparsity_pct']}%")
+    print(f"  int8_auc_parity on the dense checkpoint ({parity_s:.1f} s): AUC fp32 "
+          f"{parity['fp32']['auc']}, int8 layerwise {parity['int8-layerwise']['auc']}, int8 "
+          f"fused {parity['int8-fused']['auc']} (gap {gap}, at most {SCALE_FUSED_GAP}); fused "
+          f"tower launches {launches} for {n_batches} batches of {BATCH}; int8_mlp vs plain "
+          f"version on the first batch max |diff| {tower_err:.3e} (tol {TOL})")
+    return {"launches_scale_path": launches, "max_abs_err_scale": tower_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1563,6 +1672,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1 to 3 and 17 only (for a machine with four cards), without the "
                          "result lines")
+    ap.add_argument("--scale-only", action="store_true",
+                    help="phases 1 to 3 and 18 only, without the result lines")
     args = ap.parse_args(argv)
 
     # ---- 1. device
@@ -1610,6 +1721,10 @@ def main(argv=None) -> int:
 
     if args.sharded_only:
         sharded_phase(args, cfg, card)
+        print(card)
+        return 0
+    if args.scale_only:
+        scale_phase(card)
         print(card)
         return 0
 
@@ -1818,13 +1933,16 @@ def main(argv=None) -> int:
     # ---- 17. sharded training
     sharded = sharded_phase(args, cfg, card)
 
+    # ---- 18. quality at scale
+    scaled = scale_phase(card)
+
     # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
         "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained, **deployed,
-        **sharded,
+        **sharded, **scaled,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": l_ms,
         "layered_ms": layered_ms, "layered_max_abs_err": layered_err,

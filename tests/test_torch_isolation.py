@@ -186,6 +186,30 @@ def test_sharded_entry_points_default_to_the_card(tmp_path, monkeypatch):
             call()
 
 
+def test_scale_tools_default_to_the_card(tmp_path):
+    """The quality-at-scale tools (``tools/``): each ``main`` goes to the card
+    unless given ``device="cpu"`` (or the script's own ``--cpu`` /
+    ``--smoke``), and raises before it reads or generates any data."""
+    from xsdeepfwfm_deprecated_torch.tools import (int8_auc_parity, kd_scale_run, nfm_scale_run,
+                                                   pruned_serving_bench, qr_scale_run,
+                                                   synthetic_scale_run)
+    tools = {m.__name__.rsplit(".", 1)[1] for m in (
+        int8_auc_parity, kd_scale_run, nfm_scale_run, pruned_serving_bench, qr_scale_run,
+        synthetic_scale_run)}
+    assert {p.stem for p in (PORT / "tools").glob("*.py")} == tools | {"__init__"}
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the tools would run in full")
+    missing = str(tmp_path / "missing")
+    for main, argv in ((synthetic_scale_run.main, ["--rows", "2000"]),
+                       (int8_auc_parity.main, ["--checkpoint", missing, "--cache", missing]),
+                       (kd_scale_run.main, ["--cache", missing]),
+                       (qr_scale_run.main, ["--cache", missing]),
+                       (nfm_scale_run.main, ["--rows", "2000"]),
+                       (pruned_serving_bench.main, [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+
+
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: chip_smoke.py would run in full")

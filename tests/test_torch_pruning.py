@@ -13,6 +13,7 @@ are equal.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -289,3 +290,44 @@ def test_fit_prune_arguments_override_the_config():
     _, est_t = pruned_fit_pair(kw, n=100, prune=True, prune_fm=False, emb_r=0.5)
     assert zero_share(est_t.params["emb2"]["dense"]) == 0.0
     assert zero_share(est_t.params["deep"]["net_1"]["layers"][1]["w"]) > 0.02
+
+
+def test_unread_table_rows_stop_where_xla_stops_them():
+    """A table of 32,768 values (above ``BISECT_SIZE``, so the threshold is the
+    log-space bisection with its floor at the largest magnitude * 2^-120)
+    whose first half gets a gradient every step and whose second half, rows
+    that no batch reads, gets L2 alone; a refresh at 40% every 10 steps, for
+    2,000 steps of Adam in both packages. The unread rows decay until their
+    first moment is subnormal, which XLA reads as 0: there they stop, at
+    |w| ~ 1e-31, and each refresh zeroes the target share. With the
+    subnormals kept they crept on below the search's floor, and a refresh
+    zeroed every unread row: half the table, not 40%."""
+    rows, e, steps = 8192, 4, 2000
+    kw = dict(learning_rate=1e-3, weight_decay=3e-7)
+    rng = np.random.default_rng(3)
+    w0 = (rng.normal(size=(rows, e)) * 0.01).astype(np.float32)
+    params_j = {"emb2": {"dense": jnp.asarray(w0)}}
+    params_t = {"emb2": {"dense": torch.from_numpy(w0.copy())}}
+    opt_j, opt_t = JT.make_optimizer(JTrain(**kw)), TT.make_optimizer(TTrain(**kw))
+    state_j, state_t = opt_j.init(params_j), opt_t.init(params_t)
+
+    @jax.jit
+    def step_j(p, s, g):
+        u, s = opt_j.update(g, s, p)
+        return optax.apply_updates(p, u), s
+
+    prune_j = jax.jit(lambda p: JP.prune_params(p, jnp.float32(0.4), prune_deep=False))
+    for step in range(1, steps + 1):
+        g = np.zeros((rows, e), np.float32)
+        g[:rows // 2] = rng.normal(size=(rows // 2, e)) * 1e-3
+        params_j, state_j = step_j(params_j, state_j, {"emb2": {"dense": jnp.asarray(g)}})
+        opt_t.update(params_t, [torch.from_numpy(g)], state_t)
+        if step % 10 == 0:
+            params_j = prune_j(params_j)
+            params_t = TP.prune_params(params_t, 0.4, prune_deep=False)
+    got, want = params_t["emb2"]["dense"].numpy(), np.asarray(params_j["emb2"]["dense"])
+    assert int((want == 0).sum()) == pytest.approx(0.4 * got.size, abs=2)
+    assert abs(int((got == 0).sum()) - int((want == 0).sum())) <= 2
+    unread_t, unread_j = np.abs(got[rows // 2:]), np.abs(want[rows // 2:])
+    assert 1e-33 < unread_t.max() < 1e-29 and unread_t.max() == pytest.approx(unread_j.max(),
+                                                                              rel=0.1)

@@ -85,6 +85,14 @@ from . import checkpoint as ckpt
 from . import metrics as M
 
 _SLOTS = {"adam": ("mu", "nu"), "rmsp": ("nu",), "adag": ("sum_of_squares",)}
+_TABLE_GROUPS = ("emb1", "emb2", "ffm1", "ffm2")   # the parameter groups that hold table rows
+
+
+def _flush_subnormals_(moments: List[torch.Tensor]) -> None:
+    """Zero the subnormal values in place, as XLA (and the TPU) computes
+    every result: PyTorch keeps them."""
+    for m in moments:
+        m.masked_fill_(m.abs() < torch.finfo(m.dtype).tiny, 0)
 
 
 class Optimizer:
@@ -137,6 +145,14 @@ class Optimizer:
             count = slots["count"].add_(1)
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, g, alpha=1 - b1)
+            # A table row that no batch reads has L2 as its only gradient, so its
+            # first moment decays into the subnormals. There optax under XLA reads 0
+            # and the row stops moving (at |w| ~ 1e-31); with the subnormals kept it
+            # creeps on towards 1e-38, below the prune search's floor (its largest
+            # magnitude * 2^-120), and one refresh zeroes every such row, far past
+            # the target. Every other value gets a loss gradient each step.
+            _flush_subnormals_([m for (name, _), m in zip(_tree.named_leaves(params), mu)
+                                if name.split("/")[0] in _TABLE_GROUPS])
             torch._foreach_mul_(nu, b2)
             torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - b2)
             upd = torch._foreach_div(mu, 1 - torch.pow(b1, count))

@@ -86,7 +86,7 @@ def _on_cuda(tensors: Sequence) -> bool:
     return any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors)
 
 
-def _timed(run: Callable[[], None], cuda: bool) -> float:
+def timed(run: Callable[[], None], cuda: bool) -> float:
     """Seconds ``run`` takes: between two CUDA events on the current stream,
     or by the host clock on the CPU."""
     if not cuda:
@@ -119,7 +119,7 @@ def marginal_timeit(fn: Callable, model, inputs, *, k1: int = 1, k2: int = 16,
 
     run()
     _sync()
-    return min(_timed(run, cuda) for _ in range(reps)) / k2
+    return min(timed(run, cuda) for _ in range(reps)) / k2
 
 
 def scan_timeit(fn: Callable, model, xi, xv, *, iters: int = 100,
@@ -135,5 +135,5 @@ def scan_timeit(fn: Callable, model, xi, xv, *, iters: int = 100,
     if warmup:
         fn(model, xi, xv)
         _sync()
-    times = sorted(_timed(run, cuda) for _ in range(reps))
+    times = sorted(timed(run, cuda) for _ in range(reps))
     return times[len(times) // 2] / iters
