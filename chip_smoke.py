@@ -67,6 +67,18 @@ Phases, each printed on its own line:
      fp32, int8 layerwise and int8 fused, the fused tower launching once per 8192-row batch,
      equal to its plain version, the fused AUC within 2e-4 of fp32.
      --scale-only runs phases 1 to 3 and this one, without the result lines
+ 19. the bin input pipeline through tools.host_pipeline_41m: 1M rows at the full-Criteo
+     cardinalities generated into the binary layout in a temporary directory; the native
+     CSV loader's ingest rate on a 100,000-row sample (an unavailable loader fails); the
+     host epoch stream; the whole epoch (488 steps of 2,048) fed through prefetch_to_device
+     into train_step on the card, with wall_over_budget; the rows the card trained on equal
+     a second host pass of epoch_batches, by an exact digest of every row; the trained model
+     served in int8 at B=8192, the fused tower launching once and equal to its plain version.
+     --pipeline-only runs phases 1 to 3 and this one, without the result lines
+--parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
+by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
+batch of the test slice) and its max |diff| against the plain version on the first batch; the
+three arms' AUCs within 2e-4 (the 41.3M-row run's serving check), without the result lines.
 then one JSON line of per-kernel results, the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1569,6 +1581,65 @@ SCALE_EMB_SPARSITY = (40.0, 0.5)   # embedding sparsity, and how far from it
 SCALE_FUSED_GAP = 2e-4         # most fused-vs-fp32 test AUC gap
 
 
+def fused_tower_err(qm, cfg, xi: np.ndarray, xv: np.ndarray) -> float:
+    """Max |diff| of the fused int8 tower against its plain version on the
+    tower input that a dynamic int8 model ``qm`` makes of one batch of rows
+    (launches made here are not the path's)."""
+    from xsdeepfwfm_deprecated_torch.compression.quantization import quantized_lookup_serving
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp, int8_mlp_reference
+
+    dev = qm.params_fp["bias"].device
+    with torch.inference_mode():
+        x = quantized_lookup_serving(qm.emb2_q, deepfwfm.make_embedding_spec(cfg),
+                                     torch.from_numpy(xi).to(dev), torch.from_numpy(xv).to(dev))
+        x = x.reshape(xi.shape[0], -1).contiguous()
+        layers, fc = qm.fused_tower
+        return float((int8_mlp(x, layers, fc) - int8_mlp_reference(x, layers, fc)).abs().max())
+
+
+def first_batch_tower_err(checkpoint: str, cache: str) -> float:
+    """:func:`fused_tower_err` on the first 8192-row batch of a synthetic cache,
+    through a checkpoint of the flagship's architecture quantized as
+    ``int8_auc_parity`` does."""
+    from xsdeepfwfm_deprecated_torch.compression.quantization import convert
+    from xsdeepfwfm_deprecated_torch.tools import int8_auc_parity
+    from xsdeepfwfm_deprecated_torch.weights import load_jax_checkpoint
+
+    z = np.load(cache)
+    xi, xv = z["xi"][:BATCH], z["xv"][:BATCH]
+    cfg = int8_auc_parity.model_config(z["feature_sizes"].tolist(), xv.shape[1])
+    qm = convert(load_jax_checkpoint(checkpoint, cfg), cfg, mode="dynamic")
+    return fused_tower_err(qm, cfg, xi, xv)
+
+
+def parity_run(checkpoint: str, cache: str, card: str) -> None:
+    """``tools.int8_auc_parity`` on a saved checkpoint and its synthetic
+    cache, with the fused tower's launches (one per 8192-row batch of the
+    test slice) and its max |diff| against the plain version on the first
+    batch: the 41.3M-row run's serving check."""
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+    from xsdeepfwfm_deprecated_torch.tools import int8_auc_parity
+
+    t0 = time.perf_counter()
+    int8_mlp.launches = 0
+    parity = int8_auc_parity.main(["--checkpoint", checkpoint, "--cache", cache])
+    torch.cuda.synchronize()
+    launches = int8_mlp.launches
+    parity_s = time.perf_counter() - t0
+    tower_err = first_batch_tower_err(checkpoint, cache)
+    n_test = int(np.load(cache)["y"].shape[0]) // 10
+    n_batches = -(-n_test // BATCH)
+    print(f"int8_auc_parity on {checkpoint} ({parity_s:.1f} s): {n_test:,} test rows, fused tower "
+          f"launches {launches} for {n_batches} batches of {BATCH}; int8_mlp vs plain version on "
+          f"the first batch max |diff| {tower_err:.3e} (tol {TOL}) [{card}]")
+    check(launches == n_batches, f"the fused tower launched {launches} times for {n_batches} "
+                                 f"batches")
+    check(tower_err <= TOL, f"int8_mlp vs plain version: {tower_err}")
+    aucs = [parity[arm]["auc"] for arm in ("fp32", "int8-layerwise", "int8-fused")]
+    check(max(aucs) - min(aucs) <= SCALE_FUSED_GAP, f"the three arms' AUCs {aucs}")
+
+
 def scale_phase(card: str) -> dict:
     """Phase 18: quality at scale through ``xsdeepfwfm_deprecated_torch.tools``.
     Returns what the kernels line reports of the int8 tower on this path."""
@@ -1577,12 +1648,8 @@ def scale_phase(card: str) -> dict:
     import os
     import tempfile
 
-    from xsdeepfwfm_deprecated_torch.compression.quantization import (
-        convert, quantized_lookup_serving)
-    from xsdeepfwfm_deprecated_torch.models import deepfwfm
-    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp, int8_mlp_reference
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
     from xsdeepfwfm_deprecated_torch.tools import int8_auc_parity, synthetic_scale_run
-    from xsdeepfwfm_deprecated_torch.weights import load_jax_checkpoint
 
     where = f"[{card}]"
 
@@ -1628,20 +1695,7 @@ def scale_phase(card: str) -> dict:
     gap = parity["fused_vs_fp32_auc_gap"]
     check(abs(gap) <= SCALE_FUSED_GAP, f"fused-vs-fp32 AUC gap {gap}")
 
-    # the kernel on the scale path's first batch against its plain version
-    # (launches made here are not the path's)
-    z = np.load(cache)
-    xi, xv = z["xi"][:BATCH], z["xv"][:BATCH]
-    cfg = int8_auc_parity.model_config(z["feature_sizes"].tolist(), xv.shape[1])
-    qm = convert(load_jax_checkpoint(save + "_dense", cfg), cfg, mode="dynamic")
-    dev = qm.params_fp["bias"].device
-    with torch.inference_mode():
-        x = quantized_lookup_serving(qm.emb2_q, deepfwfm.make_embedding_spec(cfg),
-                                     torch.from_numpy(xi).to(dev), torch.from_numpy(xv).to(dev))
-        x = x.reshape(BATCH, -1).contiguous()
-        layers, fc = qm.fused_tower
-        tower_err = float((int8_mlp(x, layers, fc) - int8_mlp_reference(x, layers, fc))
-                          .abs().max())
+    tower_err = first_batch_tower_err(save + "_dense", cache)
     check(tower_err <= TOL, f"int8_mlp vs plain version on the scale path: {tower_err}")
     tmp.cleanup()
     phase_s = time.perf_counter() - t_phase
@@ -1662,6 +1716,106 @@ def scale_phase(card: str) -> dict:
     return {"launches_scale_path": launches, "max_abs_err_scale": tower_err}
 
 
+PIPE_ROWS = 1_000_000
+PIPE_SAMPLE = 100_000    # rows of the native-ingest sample
+PIPE_K = 8               # steps a timed rep of the budget
+
+
+def row_digests(index, value, label, lib=np):
+    """One exact integer a row: the bits of its indices, values and label,
+    weighted by column. The same on numpy arrays and (``lib=torch``) on
+    tensors on any device; at most 2^31 * 820 in magnitude, so the sums are
+    exact in int64."""
+    if lib is np:
+        rows = np.concatenate([index, value.view(np.int32), label.view(np.int32)[:, None]], 1)
+        return rows.astype(np.int64) @ np.arange(1, rows.shape[1] + 1, dtype=np.int64)
+    rows = torch.cat([index, value.view(torch.int32), label.view(torch.int32)[:, None]], 1)
+    w = torch.arange(1, rows.shape[1] + 1, dtype=torch.int64, device=rows.device)
+    return (rows.long() * w).sum(1)
+
+
+def pipeline_phase(card: str) -> dict:
+    """Phase 19: the bin input pipeline feeding the card's train step, through
+    ``tools.host_pipeline_41m``. Returns what the kernels line reports of the
+    int8 tower on this path."""
+    import contextlib
+    import io
+    import tempfile
+
+    from xsdeepfwfm_deprecated_torch.compression.quantization import convert
+    from xsdeepfwfm_deprecated_torch.data.sharded_input import ShardedBinPipeline
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.tools import host_pipeline_41m as hp
+
+    where = f"[{card}]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    with contextlib.redirect_stdout(io.StringIO()):
+        sizes = hp.generate(d, PIPE_ROWS)
+    gen_s = time.perf_counter() - t_phase
+    native = hp.native_ingest_rate(d, PIPE_SAMPLE)
+    check("native_csv_rows_per_s" in native, f"native CSV ingest: {native}")
+    host = hp.host_stream_rate(d, TRAIN_BATCH)
+    n_steps = PIPE_ROWS // TRAIN_BATCH
+    check(host["host_rows"] == n_steps * TRAIN_BATCH, f"host stream: {host}")
+
+    # every batch the train step receives, digested on the card (no copy back until the end)
+    digests = []
+    step = hp.train_step
+
+    def digesting_step(params, opt_state, batch, *args, **kw):
+        digests.append(row_digests(batch["xi"], batch["xv"], batch["y"], lib=torch))
+        return step(params, opt_state, batch, *args, **kw)
+
+    int8_mlp.launches = 0
+    hp.train_step = digesting_step
+    try:
+        res, params = hp.card_epoch(d, sizes, TRAIN_BATCH, PIPE_K, n_steps)
+    finally:
+        hp.train_step = step
+    check(int8_mlp.launches == 0, "the train steps launched the int8 tower")
+    check(res["card_steps"] == n_steps and len(digests) == n_steps + hp.BUDGET_REPS * PIPE_K,
+          f"{res['card_steps']} card steps and {len(digests)} train_step calls for an epoch of "
+          f"{n_steps}")
+    got = torch.stack(digests[:n_steps]).cpu().numpy()
+    pipe = ShardedBinPipeline(d)
+    want = np.stack([row_digests(b["index"], b["value"], b["label"])
+                     for b in pipe.epoch_batches(TRAIN_BATCH, seed=4, epoch=0)])
+    check(np.array_equal(got, want), "the rows the card trained on differ from a second host "
+                                     "pass of epoch_batches")
+
+    # the trained model served in int8: the fused tower once, against its plain version
+    cfg = hp.model_config(sizes)
+    pred = Predictor(convert(params, cfg, "dynamic"))
+    xi, xv = np.array(pipe.arrays["index"][:BATCH]), np.array(pipe.arrays["value"][:BATCH])
+    int8_mlp.launches = 0
+    logits = pred.logits(xi, xv)
+    launches = int8_mlp.launches
+    check(launches == 1, f"the int8 request launched the fused tower {launches} times")
+    check(logits.shape == (BATCH,) and np.isfinite(logits).all(), "int8 logits not finite")
+    err = fused_tower_err(pred._model, cfg, xi, xv)
+    check(err <= TOL, f"int8_mlp vs plain version on the pipeline's model: {err}")
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    phase(19, f"bin input pipeline: {PIPE_ROWS:,} rows at full-Criteo dims, {phase_s:.1f} s "
+              f"{where}")
+    print(f"  generated in {gen_s:.1f} s; native CSV ingest of {PIPE_SAMPLE:,} rows "
+          f"{native['native_csv_rows_per_s']:.0f} rows/s ({native['native_csv_mb_per_s']} MB/s); "
+          f"host epoch stream {host['host_rows_per_s']:.0f} rows/s {where}")
+    print(f"  card epoch: {res['card_steps']} steps of {TRAIN_BATCH} in {res['card_wall_s']} s "
+          f"against a budget of {res['card_step_budget_s']} s ({res['card_step_ms']} ms a step "
+          f"on a cached batch): wall_over_budget {res['wall_over_budget']} (host_is_bottleneck "
+          f"{res['host_is_bottleneck']}; the digest of each batch is inside the wall); waiting "
+          f"for batches {res['card_feed_s']} s, {res['card_bin_s']} s of it in epoch_batches; "
+          f"pinned H2D {res['h2d_gb_per_s']} GB/s {where}")
+    print(f"  the {n_steps} batches the card trained on equal a second host pass, row for row; "
+          f"int8 Predictor at B={BATCH}: fused tower launches {launches}, int8_mlp vs plain "
+          f"version max |diff| {err:.3e} (tol {TOL})")
+    return {"launches_pipeline_path": launches, "max_abs_err_pipeline": err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1674,6 +1828,12 @@ def main(argv=None) -> int:
                          "result lines")
     ap.add_argument("--scale-only", action="store_true",
                     help="phases 1 to 3 and 18 only, without the result lines")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="phases 1 to 3 and 19 only, without the result lines")
+    ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
+                    help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
+                         "the fused tower's launches and its max |diff| against the plain "
+                         "version, without the result lines")
     args = ap.parse_args(argv)
 
     # ---- 1. device
@@ -1725,6 +1885,14 @@ def main(argv=None) -> int:
         return 0
     if args.scale_only:
         scale_phase(card)
+        print(card)
+        return 0
+    if args.pipeline_only:
+        pipeline_phase(card)
+        print(card)
+        return 0
+    if args.parity:
+        parity_run(*args.parity, card)
         print(card)
         return 0
 
@@ -1936,13 +2104,16 @@ def main(argv=None) -> int:
     # ---- 18. quality at scale
     scaled = scale_phase(card)
 
+    # ---- 19. the bin input pipeline
+    piped = pipeline_phase(card)
+
     # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
         "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained, **deployed,
-        **sharded, **scaled,
+        **sharded, **scaled, **piped,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": l_ms,
         "layered_ms": layered_ms, "layered_max_abs_err": layered_err,

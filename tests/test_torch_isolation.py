@@ -187,16 +187,30 @@ def test_sharded_entry_points_default_to_the_card(tmp_path, monkeypatch):
 
 
 def test_scale_tools_default_to_the_card(tmp_path):
-    """The quality-at-scale tools (``tools/``): each ``main`` goes to the card
-    unless given ``device="cpu"`` (or the script's own ``--cpu`` /
-    ``--smoke``), and raises before it reads or generates any data."""
-    from xsdeepfwfm_deprecated_torch.tools import (int8_auc_parity, kd_scale_run, nfm_scale_run,
+    """The tools (``tools/``): each ``main`` that trains or serves goes to the
+    card unless given ``device="cpu"`` (or the script's own ``--cpu`` /
+    ``--smoke``), and raises before it reads or generates any data;
+    ``host_pipeline_41m`` does so with ``--card``. The host-only tools (the
+    generator of the 41.3M-row bin set and the preprocessing CLIs) take no
+    device."""
+    import inspect
+
+    from xsdeepfwfm_deprecated_torch.tools import (gen_41m_bin, host_pipeline_41m,
+                                                   int8_auc_parity, kd_scale_run, nfm_scale_run,
+                                                   preprocess_ali, preprocess_avazu,
+                                                   preprocess_criteo, preprocess_twitter,
                                                    pruned_serving_bench, qr_scale_run,
                                                    synthetic_scale_run)
-    tools = {m.__name__.rsplit(".", 1)[1] for m in (
-        int8_auc_parity, kd_scale_run, nfm_scale_run, pruned_serving_bench, qr_scale_run,
-        synthetic_scale_run)}
+    card_tools = (int8_auc_parity, kd_scale_run, nfm_scale_run, pruned_serving_bench,
+                  qr_scale_run, synthetic_scale_run, host_pipeline_41m)
+    host_tools = (gen_41m_bin, preprocess_ali, preprocess_avazu, preprocess_criteo,
+                  preprocess_twitter)
+    tools = {m.__name__.rsplit(".", 1)[1] for m in card_tools + host_tools}
     assert {p.stem for p in (PORT / "tools").glob("*.py")} == tools | {"__init__"}
+    for m in card_tools:
+        assert "device" in inspect.signature(m.main).parameters, m.__name__
+    for m in host_tools:
+        assert "device" not in inspect.signature(m.main).parameters, m.__name__
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the tools would run in full")
     missing = str(tmp_path / "missing")
@@ -205,9 +219,12 @@ def test_scale_tools_default_to_the_card(tmp_path):
                        (kd_scale_run.main, ["--cache", missing]),
                        (qr_scale_run.main, ["--cache", missing]),
                        (nfm_scale_run.main, ["--rows", "2000"]),
-                       (pruned_serving_bench.main, [])):
+                       (pruned_serving_bench.main, []),
+                       (host_pipeline_41m.main, ["--card", "--tpu", "--rows", "2000", "--dir",
+                                                 missing])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
+    assert not os.path.exists(missing)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
