@@ -71,9 +71,11 @@ Phases, each printed on its own line:
      cardinalities generated into the binary layout in a temporary directory; the native
      CSV loader's ingest rate on a 100,000-row sample (an unavailable loader fails); the
      host epoch stream; the whole epoch (488 steps of 2,048) fed through prefetch_to_device
-     into train_step on the card, with wall_over_budget; the rows the card trained on equal
-     a second host pass of epoch_batches, by an exact digest of every row; the trained model
-     served in int8 at B=8192, the fused tower launching once and equal to its plain version.
+     into train_step on the card, with wall_over_budget against a cached batch's steps and
+     wall_over_staged_budget against the loop's last batches staged on the card; the rows
+     the card trained on equal a second host pass of epoch_batches, by an exact digest of
+     every row; the trained model served in int8 at B=8192, the fused tower launching once
+     and equal to its plain version.
      --pipeline-only runs phases 1 to 3 and this one, without the result lines
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
@@ -1628,7 +1630,7 @@ def parity_run(checkpoint: str, cache: str, card: str) -> None:
     launches = int8_mlp.launches
     parity_s = time.perf_counter() - t0
     tower_err = first_batch_tower_err(checkpoint, cache)
-    n_test = int(np.load(cache)["y"].shape[0]) // 10
+    n_test = int8_auc_parity.n_test_rows(int(np.load(cache)["y"].shape[0]))
     n_batches = -(-n_test // BATCH)
     print(f"int8_auc_parity on {checkpoint} ({parity_s:.1f} s): {n_test:,} test rows, fused tower "
           f"launches {launches} for {n_batches} batches of {BATCH}; int8_mlp vs plain version on "
@@ -1688,7 +1690,7 @@ def scale_phase(card: str) -> dict:
     parity, parity_s = tool(int8_auc_parity.main,
                             ["--checkpoint", save + "_dense", "--cache", cache])
     launches = int8_mlp.launches
-    n_test = SCALE_ROWS // 10
+    n_test = int8_auc_parity.n_test_rows(SCALE_ROWS)
     n_batches = -(-n_test // BATCH)
     check(launches == n_batches,
           f"the fused tower launched {launches} times for {n_batches} batches of {BATCH}")
@@ -1776,7 +1778,8 @@ def pipeline_phase(card: str) -> dict:
     finally:
         hp.train_step = step
     check(int8_mlp.launches == 0, "the train steps launched the int8 tower")
-    check(res["card_steps"] == n_steps and len(digests) == n_steps + hp.BUDGET_REPS * PIPE_K,
+    check(res["card_steps"] == n_steps
+          and len(digests) == n_steps + 2 * hp.BUDGET_REPS * PIPE_K,
           f"{res['card_steps']} card steps and {len(digests)} train_step calls for an epoch of "
           f"{n_steps}")
     got = torch.stack(digests[:n_steps]).cpu().numpy()
@@ -1807,7 +1810,9 @@ def pipeline_phase(card: str) -> dict:
     print(f"  card epoch: {res['card_steps']} steps of {TRAIN_BATCH} in {res['card_wall_s']} s "
           f"against a budget of {res['card_step_budget_s']} s ({res['card_step_ms']} ms a step "
           f"on a cached batch): wall_over_budget {res['wall_over_budget']} (host_is_bottleneck "
-          f"{res['host_is_bottleneck']}; the digest of each batch is inside the wall); waiting "
+          f"{res['host_is_bottleneck']}; the digest of each batch is inside the wall); against "
+          f"the loop's last batches staged on the card {res['card_step_ms_staged']} ms a step, "
+          f"wall_over_staged_budget {res['wall_over_staged_budget']}; waiting "
           f"for batches {res['card_feed_s']} s, {res['card_bin_s']} s of it in epoch_batches; "
           f"pinned H2D {res['h2d_gb_per_s']} GB/s {where}")
     print(f"  the {n_steps} batches the card trained on equal a second host pass, row for row; "

@@ -10,6 +10,7 @@ the CPU with a narrow model, to the pipeline's batches and to the port's own
 
 import itertools
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -31,7 +32,8 @@ from xsdeepfwfm_deprecated_torch.train import trainer as TT
 
 ROWS = 5000          # crosses the seam of 2,000-row chunks twice
 CARD_KEYS = {"card_steps", "card_wall_s", "card_step_ms", "card_step_budget_s",
-             "wall_over_budget", "host_is_bottleneck", "h2d_gb_per_s"}
+             "wall_over_budget", "host_is_bottleneck", "h2d_gb_per_s", "card_step_ms_staged",
+             "card_staged_budget_s", "wall_over_staged_budget"}
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +83,24 @@ def test_gen_41m_bin_writes_once(tmp_path):
     assert out == "already generated\n"
 
 
+def test_a_set_of_another_size_or_half_written_is_refused(tmp_path):
+    d = str(tmp_path / "bin")
+    printed(gen_41m_bin.main, ["--rows", "3000", "--dir", d])
+    for main in (gen_41m_bin.main, hp.main):
+        with pytest.raises(ValueError, match="holds 3,000 rows, not 4,000"):
+            printed(main, ["--rows", "4000", "--dir", d, *(["--skip-native"] * (main is hp.main))])
+    os.remove(os.path.join(d, "feature_sizes.npy"))
+    for main in (gen_41m_bin.main, hp.main):
+        with pytest.raises(ValueError, match="half-written"):
+            printed(main, ["--rows", "3000", "--dir", d])
+
+
+def test_default_dir_follows_the_temporary_directory(tmp_path, monkeypatch):
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    want = os.path.join(str(tmp_path), "synth41m_bin")
+    assert hp.default_dir() == want and hp.get_parser().parse_args([]).dir == want
+
+
 def test_main_host_legs_print_the_scripts_lines(tmp_path):
     d = str(tmp_path / "bin")
     res, out = printed(hp.main, ["--rows", "3000", "--dir", d, "--batch", "512",
@@ -123,8 +143,10 @@ def test_card_epoch_trains_on_exactly_the_pipelines_batches(tmp_path, monkeypatc
     assert res["card_device"] == "cpu"
     assert res["host_is_bottleneck"] == (res["card_wall_s"] > 1.15 * res["card_step_budget_s"])
     want = list(itertools.islice(ShardedBinPipeline(d).epoch_batches(64, seed=4, epoch=0), 4))
-    assert len(seen) == 4 + hp.BUDGET_REPS          # the epoch, then the budget on its last batch
-    for got, b in zip(seen, want + [want[-1]] * hp.BUDGET_REPS):
+    # the epoch, the budget on its last batch, then the staged budget over its batches in order
+    staged = [want[i % len(want)] for i in range(hp.BUDGET_REPS)]
+    assert len(seen) == 4 + 2 * hp.BUDGET_REPS
+    for got, b in zip(seen, want + [want[-1]] * hp.BUDGET_REPS + staged):
         assert np.array_equal(got["xi"].numpy(), b["index"])
         assert np.array_equal(got["xv"].numpy(), b["value"])
         assert np.array_equal(got["y"].numpy(), b["label"])

@@ -3,32 +3,30 @@
 Port of ``scripts/gen_41m_bin.py``, with its flags and printed lines: it
 writes the dataset (and ``feature_sizes.npy``) once, so that a later
 ``host_pipeline_41m`` run skips the generation leg. It runs on the host only
-and takes no device.
+and takes no device. ``--dir`` defaults to ``synth41m_bin`` in the temporary
+directory (``$TMPDIR``, else ``/tmp``); a complete set of ``--rows`` rows there
+is kept, and a set of another size, or one left half written, is refused.
 
 Usage:
-  python -m xsdeepfwfm_deprecated_torch.tools.gen_41m_bin [--rows 41300000] [--dir /tmp/synth41m_bin]
+  python -m xsdeepfwfm_deprecated_torch.tools.gen_41m_bin [--rows 41300000] [--dir DIR]
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 
-import numpy as np
-
-from .host_pipeline_41m import generate
+from .host_pipeline_41m import default_dir, existing_set, write_set
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=41_300_000)
-    ap.add_argument("--dir", default="/tmp/synth41m_bin")
+    ap.add_argument("--dir", default=default_dir())
     args = ap.parse_args(argv)
-    if os.path.exists(os.path.join(args.dir, "feature_sizes.npy")):
+    if existing_set(args.dir, args.rows) is not None:
         print("already generated")
         return
-    sizes = generate(args.dir, args.rows)
-    np.save(os.path.join(args.dir, "feature_sizes.npy"), np.asarray(sizes))
+    write_set(args.dir, args.rows)
     print("done")
 
 

@@ -55,6 +55,12 @@ def batched_logits(fn: Callable, model, xi_p: np.ndarray, xv_p: np.ndarray, b: i
     return torch.cat(out).cpu().numpy()
 
 
+def n_test_rows(n_rows: int, requested: int = 0) -> int:
+    """Rows of the test slice of an ``n_rows`` cache: ``requested``, else a
+    tenth of the rows (at least 1,000), as the ``synthetic_scale_run`` splits."""
+    return requested or max(n_rows // 10, 1000)
+
+
 def get_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checkpoint", required=True)
@@ -75,7 +81,7 @@ def main(argv=None, device: DeviceLike = None) -> Dict:
     z = np.load(args.cache)
     xi, xv, y = z["xi"], z["xv"], z["y"]
     feature_sizes = z["feature_sizes"].tolist()
-    n_test = args.test_rows or max(len(y) // 10, 1000)
+    n_test = n_test_rows(len(y), args.test_rows)
     xi, xv, y = xi[:n_test], xv[:n_test], y[:n_test].astype(np.float64)
 
     cfg = model_config(feature_sizes, xv.shape[1])
