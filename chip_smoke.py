@@ -59,24 +59,35 @@ Phases, each printed on its own line:
      0.3 on the card equal to the CPU's bit for bit; ms per sharded step beside the
      unsharded one, and the bytes of each collective a step. On four cards, also cli.main_all,
      cli.kd and cli.quantization -quantization_aware 1 under torchrun over NCCL.
-     --sharded-only runs phases 1 to 3 and this one, without the result lines
  18. quality at scale through xsdeepfwfm_deprecated_torch.tools: 1M synthetic rows at the
      full-Criteo cardinalities (seed 0): the oracle test AUC equals the JAX package's record;
      one dense epoch reaches the AUC floor; DeepLight (warm 1, 1 pruned epoch, Omega 0.5)
      reaches its DNN and embedding sparsities; int8_auc_parity serves the dense checkpoint in
      fp32, int8 layerwise and int8 fused, the fused tower launching once per 8192-row batch,
      equal to its plain version, the fused AUC within 2e-4 of fp32.
-     --scale-only runs phases 1 to 3 and this one, without the result lines
  19. the bin input pipeline through tools.host_pipeline_41m: 1M rows at the full-Criteo
      cardinalities generated into the binary layout in a temporary directory; the native
      CSV loader's ingest rate on a 100,000-row sample (an unavailable loader fails); the
      host epoch stream; the whole epoch (488 steps of 2,048) fed through prefetch_to_device
-     into train_step on the card, with wall_over_budget against a cached batch's steps and
-     wall_over_staged_budget against the loop's last batches staged on the card; the rows
-     the card trained on equal a second host pass of epoch_batches, by an exact digest of
-     every row; the trained model served in int8 at B=8192, the fused tower launching once
-     and equal to its plain version.
-     --pipeline-only runs phases 1 to 3 and this one, without the result lines
+     into make_multi_step on the card, 8 steps a CUDA graph replay (--k-steps 8), with
+     wall_over_budget against replays on a cached group and wall_over_staged_budget against
+     the loop's last groups staged on the card; the rows the card trained on equal a second
+     host pass of epoch_batches, by an exact digest of every row; the trained model served
+     in int8 at B=8192, the fused tower launching once and equal to its plain version.
+ 20. the compiled dispatch: each CUDA-graphed path against the same path run eagerly on the
+     card, host-clock ms and device ms (the device's busy share) of both: the Predictor
+     (fp32, dynamic int8 with the fused tower inside its graph, compact) at B=8192 and B=1,
+     logits within 1e-6; _predict_logits' scanned groups against per-batch forwards, equal;
+     the dropout masks of K graphed steps equal to K eager steps' from the same generator;
+     fit on the flagship for an epoch of 64 steps with steps_per_call=10, pruning and
+     dropout on (six replays and a short group of four eager steps) against
+     steps_per_call=1 from the same state and generator: the first loss equal, sparsity
+     within two parameters, and under torch's deterministic algorithms every parameter
+     within STEP_TOL (beside it the spread of two eager fits with the card's atomic
+     scatter-add); ms a train step in both forms; the pipeline leg at 1M rows with
+     --k-steps 8 against --k-steps 1.
+--phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
+4 to 7, 8 to 11, 12 to 16, and 17, 18, 19, 20 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -90,6 +101,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -103,6 +115,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
+PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20))
+LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
 REQUEST_SIZES = (BATCH, BATCH, BATCH, 1, 1000)
@@ -1645,7 +1659,6 @@ def parity_run(checkpoint: str, cache: str, card: str) -> None:
 def scale_phase(card: str) -> dict:
     """Phase 18: quality at scale through ``xsdeepfwfm_deprecated_torch.tools``.
     Returns what the kernels line reports of the int8 tower on this path."""
-    import contextlib
     import io
     import os
     import tempfile
@@ -1720,7 +1733,7 @@ def scale_phase(card: str) -> dict:
 
 PIPE_ROWS = 1_000_000
 PIPE_SAMPLE = 100_000    # rows of the native-ingest sample
-PIPE_K = 8               # steps a timed rep of the budget
+PIPE_K = 8               # steps a multi-step dispatch (the script's --k-steps)
 
 
 def row_digests(index, value, label, lib=np):
@@ -1740,7 +1753,6 @@ def pipeline_phase(card: str) -> dict:
     """Phase 19: the bin input pipeline feeding the card's train step, through
     ``tools.host_pipeline_41m``. Returns what the kernels line reports of the
     int8 tower on this path."""
-    import contextlib
     import io
     import tempfile
 
@@ -1763,25 +1775,31 @@ def pipeline_phase(card: str) -> dict:
     n_steps = PIPE_ROWS // TRAIN_BATCH
     check(host["host_rows"] == n_steps * TRAIN_BATCH, f"host stream: {host}")
 
-    # every batch the train step receives, digested on the card (no copy back until the end)
+    # every batch of every group the multi-step receives, digested on the card (no copy back
+    # until the end)
     digests = []
-    step = hp.train_step
+    make = hp.make_multi_step
 
-    def digesting_step(params, opt_state, batch, *args, **kw):
-        digests.append(row_digests(batch["xi"], batch["xv"], batch["y"], lib=torch))
-        return step(params, opt_state, batch, *args, **kw)
+    def digesting_multi_step(*args, **kw):
+        multi = make(*args, **kw)
+
+        def step(params, opt_state, xi_k, xv_k, y_k, *rest, **kw2):
+            digests.extend(row_digests(xi_k[i], xv_k[i], y_k[i], lib=torch)
+                           for i in range(xi_k.shape[0]))
+            return multi(params, opt_state, xi_k, xv_k, y_k, *rest, **kw2)
+        return step
 
     int8_mlp.launches = 0
-    hp.train_step = digesting_step
+    hp.make_multi_step = digesting_multi_step
     try:
         res, params = hp.card_epoch(d, sizes, TRAIN_BATCH, PIPE_K, n_steps)
     finally:
-        hp.train_step = step
+        hp.make_multi_step = make
     check(int8_mlp.launches == 0, "the train steps launched the int8 tower")
     check(res["card_steps"] == n_steps
           and len(digests) == n_steps + 2 * hp.BUDGET_REPS * PIPE_K,
-          f"{res['card_steps']} card steps and {len(digests)} train_step calls for an epoch of "
-          f"{n_steps}")
+          f"{res['card_steps']} card steps and {len(digests)} batches dispatched for an epoch "
+          f"of {n_steps}")
     got = torch.stack(digests[:n_steps]).cpu().numpy()
     pipe = ShardedBinPipeline(d)
     want = np.stack([row_digests(b["index"], b["value"], b["label"])
@@ -1807,9 +1825,10 @@ def pipeline_phase(card: str) -> dict:
     print(f"  generated in {gen_s:.1f} s; native CSV ingest of {PIPE_SAMPLE:,} rows "
           f"{native['native_csv_rows_per_s']:.0f} rows/s ({native['native_csv_mb_per_s']} MB/s); "
           f"host epoch stream {host['host_rows_per_s']:.0f} rows/s {where}")
-    print(f"  card epoch: {res['card_steps']} steps of {TRAIN_BATCH} in {res['card_wall_s']} s "
-          f"against a budget of {res['card_step_budget_s']} s ({res['card_step_ms']} ms a step "
-          f"on a cached batch): wall_over_budget {res['wall_over_budget']} (host_is_bottleneck "
+    print(f"  card epoch, {PIPE_K} steps a graph replay: {res['card_steps']} steps of "
+          f"{TRAIN_BATCH} in {res['card_wall_s']} s against a budget of "
+          f"{res['card_step_budget_s']} s ({res['card_step_ms']} ms a step on a cached group): "
+          f"wall_over_budget {res['wall_over_budget']} (host_is_bottleneck "
           f"{res['host_is_bottleneck']}; the digest of each batch is inside the wall); against "
           f"the loop's last batches staged on the card {res['card_step_ms_staged']} ms a step, "
           f"wall_over_staged_budget {res['wall_over_staged_budget']}; waiting "
@@ -1821,85 +1840,297 @@ def pipeline_phase(card: str) -> dict:
     return {"launches_pipeline_path": launches, "max_abs_err_pipeline": err}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--iters", type=int, default=100, help="timed calls per kernel")
-    ap.add_argument("--profile-sharded", action="store_true",
-                    help="profile a step of each exchange in phase 17 (the profiler's start on "
-                         "every rank adds tens of seconds to the phase)")
-    ap.add_argument("--sharded-only", action="store_true",
-                    help="phases 1 to 3 and 17 only (for a machine with four cards), without the "
-                         "result lines")
-    ap.add_argument("--scale-only", action="store_true",
-                    help="phases 1 to 3 and 18 only, without the result lines")
-    ap.add_argument("--pipeline-only", action="store_true",
-                    help="phases 1 to 3 and 19 only, without the result lines")
-    ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
-                    help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
-                         "the fused tower's launches and its max |diff| against the plain "
-                         "version, without the result lines")
-    args = ap.parse_args(argv)
+DISPATCH_FIT_K = 10     # phase 20's graphed fit: steps_per_call (the tools' default)
+DISPATCH_REPS = 50      # host-clock calls of a Predictor form in each turn
+GRAPH_TOL = 1e-6        # graphed against eager logits: the same kernels on the same inputs
 
-    # ---- 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+
+def in_turns(fn_a, fn_b, iters: int):
+    """Median host-clock ms of two forms, timed a, b, b, a; the mean of each
+    form's two medians."""
+    a1, b1 = host_ms(fn_a, iters), host_ms(fn_b, iters)
+    b2, a2 = host_ms(fn_b, iters), host_ms(fn_a, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def busy(fn, calls: int) -> str:
+    """The device's share of ``fn`` under the profiler, as text."""
+    wall, dev_ms, _ = profile_top(fn, calls=calls, top=1)
+    return f"device {dev_ms:.4f} ms ({dev_ms / wall:.0%} busy under the profiler)"
+
+
+def within_step_tol(a: dict, b: dict):
+    """(share of values within STEP_TOL, largest |diff|) over two trees."""
+    from xsdeepfwfm_deprecated_torch import _tree
+    n_close = n_all = 0
+    far = 0.0
+    for x, w in zip(_tree.leaves(a), _tree.leaves(b)):
+        x, w = x.detach().double(), w.detach().double()
+        diff = (x - w).abs()
+        far = max(far, float(diff.max()))
+        n_close += int((diff <= STEP_TOL["atol"] + STEP_TOL["rtol"] * w.abs()).sum())
+        n_all += diff.numel()
+    return n_close / n_all, far
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block: ``index_add_`` sums
+    through a sort in place of atomics, so that the same steps give the same
+    bits. ``warn_only``, with the warnings silenced: cuBLAS keeps its own
+    workspace setting (the environment's), which the block does not change."""
+    import warnings
+    was, warn_only = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def dispatch_phase(args, cfg, card: str) -> dict:
+    """Phase 20: the JAX package's compiled dispatch as CUDA graphs, each
+    graphed path against the same path run eagerly on the card. Returns the
+    fused tower's launches through the int8 Predictor's graph replays."""
+    import dataclasses
+    import io
+    import logging
+    import tempfile
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.compression import pruning
+    from xsdeepfwfm_deprecated_torch.compression.quantization import convert
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.entry import flagship_train_config
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops import mlp as mlp_ops
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+    from xsdeepfwfm_deprecated_torch.serving.compaction import compact_for_serving
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.tools import host_pipeline_41m as hp
+    from xsdeepfwfm_deprecated_torch.train import trainer
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+
+    quiet = logging.getLogger("chip_smoke.dispatch")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    lines = []
+
+    # the Predictor: one graph a batch shape, against its eager forward
+    params_cpu = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg, device="cpu")
+    structured = pruning.prune_params(params_cpu, 0.5, prune_fm=False, prune_deep=True,
+                                      structured_deep=True)
+    preds = {"fp32": Predictor(params_cpu, cfg),
+             "int8": Predictor(convert(params_cpu, cfg, "dynamic")),
+             "compact": Predictor(compact_for_serving(structured, cfg))}
+    reqs = make_requests(cfg, args.seed + 1)
+    graph_launches = 0
+    for name, pred in preds.items():
+        for xi, xv in (reqs[0], reqs[3]):
+            b = xi.shape[0]
+            before = int8_mlp.launches
+            graphed = pred.logits(xi, xv)
+            fused = int(name == "int8" and b % 512 == 0)
+            check(int8_mlp.launches == before + fused,
+                  f"{name} B={b}: tower launches {before} -> {int8_mlp.launches} in one replay")
+            graph_launches += int8_mlp.launches - before
+
+            def eager():
+                with torch.inference_mode():
+                    return pred._fn(pred._model, torch.from_numpy(xi).to(dev),
+                                    torch.from_numpy(xv).to(dev)).cpu().numpy()
+            diff = float(np.abs(graphed - eager()).max())
+            check(graphed.shape == (b,) and diff <= GRAPH_TOL,
+                  f"{name} B={b}: graphed logits differ from eager by {diff}")
+            g_ms, e_ms = in_turns(lambda: pred.logits(xi, xv), eager, DISPATCH_REPS)
+            lines.append(f"  Predictor {name} B={b}: graphed {g_ms:.3f} ms by the host clock, "
+                         f"{busy(lambda: pred.logits(xi, xv), 20)} | eager {e_ms:.3f} ms, "
+                         f"{busy(eager, 20)} | max |diff| {diff:.1e}")
+        check(len(pred._graphs) == 2, f"{name}: {len(pred._graphs)} graphs for two batch shapes")
+
+    # _predict_logits: EVAL_SCAN_K batches a replay against per-batch forwards
+    est = trainer.DeepFMEstimator(cfg, flagship_train_config(), logger=quiet)
+    est.params = _tree.tree_map(lambda t: t.to(dev), params_cpu)
+    k_eval = trainer.EVAL_SCAN_K
+    n_eval = 2 * k_eval * BATCH + 3000
+    xi_e, xv_e, _ = make_training_rows(cfg, args.seed + 30, n_eval)
+
+    def per_batch():
+        out = []
+        with torch.inference_mode():
+            for batch in batching.prefetch_to_device(batching.iter_batches(
+                    xi_e, xv_e, np.zeros(n_eval, np.float32), BATCH), dev):
+                out.append(deepfwfm.forward(est.params, batch["xi"], batch["xv"], cfg)
+                           [:batch["n_valid"]])
+            return torch.cat(out).cpu().numpy()
+    scanned = est._predict_logits(xi_e, xv_e)
+    eval_diff = float(np.abs(scanned - per_batch()).max())
+    check(eval_diff == 0.0, f"scanned eval differs from per-batch forwards by {eval_diff}")
+    s_ms, b_ms = in_turns(lambda: est._predict_logits(xi_e, xv_e), per_batch, 5)
+    lines.append(f"  _predict_logits of {n_eval:,} rows (two groups of {k_eval} x {BATCH}, a tail "
+                 f"of 3,000): scanned {s_ms:.3f} ms, "
+                 f"{busy(lambda: est._predict_logits(xi_e, xv_e), 3)} | per batch {b_ms:.3f} ms, "
+                 f"{busy(per_batch, 3)} | max |diff| {eval_diff:.1e}")
+    del est
+
+    # dropout: K graphed steps' masks against K eager steps' from the same generator
+    b, f, e = TRAIN_BATCH, cfg.field_size, cfg.embedding_size
+    draw_shapes = [(b, f), (b, e), (b, f, e)] + [(b, w) for w in cfg.deep_layers]
+    ones = [torch.ones(shape, device=dev) for shape in draw_shapes]
+
+    def draws(gen, xs):
+        return [mlp_ops.dropout(gen, x, cfg.dropout_deep, True) != 0
+                for _ in range(DISPATCH_FIT_K) for x in xs]
+    gen_g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    gen_e = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    graph = cuda_graph.Graphed(lambda *xs: draws(gen_g, xs), ones, device=dev,
+                               name="dropout draws", generators=(gen_g,),
+                               warmup=lambda *xs: draws(cuda_graph.clone_generator(gen_g), xs))
+    masks_g = [m.clone() for m in graph.replay()]
+    masks_g += [m.clone() for m in graph.replay()]   # the second replay draws on from the first
+    masks_e = draws(gen_e, ones) + draws(gen_e, ones)
+    del graph
+    same_masks = all(torch.equal(a, m) for a, m in zip(masks_g, masks_e))
+    check(same_masks, "graphed dropout draws differ from the eager steps' draws")
+
+    # fit: an epoch with steps_per_call=10 (graphed) against steps_per_call=1 (eager). The
+    # card's scatter-add sums with atomics in any order, and Adam turns the last bit of a
+    # gradient near its eps into up to lr a step (phase 8), so two eager fits already part
+    # after 64 steps: that spread is read, and the forms are held to STEP_TOL under torch's
+    # deterministic algorithms (the scatter-add sorted), where the same steps give the same bits
+    xi_f, xv_f, y_f = make_training_rows(cfg, args.seed + 10, TRAIN_BATCH * TRAIN_BATCHES)
+    tc = flagship_train_config(n_epochs=1, batch_size=TRAIN_BATCH, prune=True, warm=0,
+                               sparse=0.9, random_seed=args.seed, eval_train_rows=BATCH)
+    replay = cuda_graph.Graphed.replay
+
+    def fit(k: int):
+        """(estimator, seconds, multi-step replays) of one epoch at steps_per_call=k."""
+        est_k = trainer.DeepFMEstimator(cfg, dataclasses.replace(tc, steps_per_call=k),
+                                        logger=quiet)
+        replays = []
+
+        def counted_replay(self):
+            replays.append(self.name)
+            return replay(self)
+        cuda_graph.Graphed.replay = counted_replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            est_k.fit(xi_f, xv_f, y_f)
+            torch.cuda.synchronize()
+        finally:
+            cuda_graph.Graphed.replay = replay
+        return est_k, time.perf_counter() - t0, sum("make_multi_step" in r for r in replays)
+
+    n_groups = TRAIN_BATCHES // DISPATCH_FIT_K
+    g_fit, g_s, step_replays = fit(DISPATCH_FIT_K)
+    e_fit, e_s, _ = fit(1)
+    e2_fit, _, _ = fit(1)
+    check(step_replays == n_groups, f"{step_replays} multi-step replays for {n_groups} full groups")
+    check(g_fit._step == e_fit._step == TRAIN_BATCHES, "steps of the two fits")
+    first_gap = abs(g_fit.last_epoch_losses[0] - e_fit.last_epoch_losses[0])
+    check(first_gap <= 1e-6, f"the first step's loss differs by {first_gap} (masks or state)")
+    nz = [deepfwfm.nonzero_param_count(x.params) for x in (g_fit, e_fit)]
+    check(abs(nz[0] - nz[1]) <= 2, f"non-zero parameters {nz[0]} graphed, {nz[1]} eager")
+    share, far = within_step_tol(g_fit.params, e_fit.params)
+    share_ee, far_ee = within_step_tol(e2_fit.params, e_fit.params)
+    with deterministic():
+        gd_fit, _, det_replays = fit(DISPATCH_FIT_K)
+        ed_fit, _, _ = fit(1)
+    check(det_replays == n_groups, f"{det_replays} deterministic multi-step replays")
+    share_d, far_d = within_step_tol(gd_fit.params, ed_fit.params)
+    bitwise_d = all(torch.equal(a, w) for a, w in zip(_tree.leaves(gd_fit.params),
+                                                      _tree.leaves(ed_fit.params)))
+    check(share_d == 1.0, f"deterministic graphed fit: {share_d} of the values within "
+                          f"{STEP_TOL}, furthest {far_d}")
+    loss_gap = float(np.abs(np.subtract(g_fit.last_epoch_losses, e_fit.last_epoch_losses)).max())
+    lines.append(f"  fit, one epoch of {TRAIN_BATCHES} x {TRAIN_BATCH}, pruned every "
+                 f"{tc.prune_interval} steps, dropout on: steps_per_call={DISPATCH_FIT_K} "
+                 f"({step_replays} graph replays and a group of {TRAIN_BATCHES % DISPATCH_FIT_K} "
+                 f"eager steps) {g_s:.3f} s (capture included) | steps_per_call=1 {e_s:.3f} s; "
+                 f"first loss {g_fit.last_epoch_losses[0]:.6f} vs "
+                 f"{e_fit.last_epoch_losses[0]:.6f}, every loss within {loss_gap:.1e}, "
+                 f"non-zeros {nz[0]} vs {nz[1]}; within STEP_TOL: graphed vs eager {share:.6f} "
+                 f"(furthest {far:.3e}), two eager fits {share_ee:.6f} (furthest {far_ee:.3e}); "
+                 f"under deterministic algorithms graphed vs eager {share_d:.6f} (furthest "
+                 f"{far_d:.3e}, bit for bit: {bitwise_d})")
+    del g_fit, e_fit, e2_fit, gd_fit, ed_fit
+
+    # ms a train step, graphed (10 steps and the refresh a replay) against eager
+    opt = trainer.make_optimizer(tc)
+    params = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg)
+    state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batches = list(batching.prefetch_to_device(batching.iter_batches(
+        xi_f[:DISPATCH_FIT_K * TRAIN_BATCH], xv_f[:DISPATCH_FIT_K * TRAIN_BATCH],
+        y_f[:DISPATCH_FIT_K * TRAIN_BATCH], TRAIN_BATCH), dev))
+    stacked = {k: torch.stack([bt[k] for bt in batches]) for k in ("xi", "xv", "y", "mask")}
+    prune_kw = dict(emb_r=tc.emb_r, emb_corr=tc.emb_corr, prune_fm=True, prune_deep=True,
+                    prune_r=tc.prune_r)
+    multi = trainer.make_multi_step(cfg, tc, opt, prune_kw=prune_kw)
+
+    def graphed_steps():
+        multi(params, state, stacked["xi"], stacked["xv"], stacked["y"], stacked["mask"], gen,
+              None, 0.01, k_real=DISPATCH_FIT_K)
+        torch.cuda.synchronize()
+
+    def eager_steps():
+        for bt in batches:
+            trainer.train_step(params, state, bt, cfg, tc, opt, generator=gen)
+        pruning.prune_params_(params, 0.01, **prune_kw)
+        torch.cuda.synchronize()
+    g_ms, e_ms = in_turns(graphed_steps, eager_steps, 10)
+    lines.append(f"  a train step at B={TRAIN_BATCH}, Adam + L2, dropout on, a refresh every "
+                 f"{DISPATCH_FIT_K} steps included: graphed {g_ms / DISPATCH_FIT_K:.3f} ms by the "
+                 f"host clock ({TRAIN_BATCH * DISPATCH_FIT_K / g_ms * 1e3:.0f} ex/s), 10 steps "
+                 f"{busy(graphed_steps, 3)} | eager {e_ms / DISPATCH_FIT_K:.3f} ms "
+                 f"({TRAIN_BATCH * DISPATCH_FIT_K / e_ms * 1e3:.0f} ex/s), 10 steps "
+                 f"{busy(eager_steps, 3)}")
+    del multi, params, state, batches, stacked
+
+    # the pipeline leg: --k-steps 8 against --k-steps 1 on the same 1M rows
+    tmp = tempfile.TemporaryDirectory()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sizes = hp.generate(tmp.name, PIPE_ROWS)
+    n_steps = PIPE_ROWS // TRAIN_BATCH
+    legs = {k: hp.card_epoch(tmp.name, sizes, TRAIN_BATCH, k, n_steps) for k in (PIPE_K, 1)}
+    tmp.cleanup()
+    check(all(res["card_steps"] == n_steps for res, _ in legs.values()), "pipeline leg steps")
+    for k, (res, _) in legs.items():
+        lines.append(f"  pipeline leg, --k-steps {k} ({'graph replays' if k > 1 else 'eager'}): "
+                     f"{res['card_steps']} steps in {res['card_wall_s']} s, "
+                     f"{res['card_step_ms']} ms a step on cached input, wall_over_budget "
+                     f"{res['wall_over_budget']}, {res['card_step_ms_staged']} ms a step "
+                     f"staged, wall_over_staged_budget {res['wall_over_staged_budget']}, "
+                     f"waiting for input {res['card_feed_s']} s")
+
+    phase(20, f"compiled dispatch, CUDA graphs against eager on the card, "
+              f"{time.perf_counter() - t_phase:.1f} s {where}")
+    for line in lines:
+        print(line + f" {where}")
+    print(f"  dropout: {2 * DISPATCH_FIT_K} graphed steps' masks at the flagship's shapes equal "
+          f"the eager steps' from the same seed: {same_masks}; fused tower launches through "
+          f"the int8 Predictor's replays {graph_launches}")
+    return {"launches_dispatch_path": graph_launches}
+
+
+def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
+    """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
+    two kernels against the plain version, times. Returns the kernels line's
+    entries of the int8 tower on the main path."""
     from xsdeepfwfm_deprecated_torch.compression.quantization import (
         convert, quantized_forward, quantized_lookup_serving)
-    from xsdeepfwfm_deprecated_torch.entry import flagship_config
     from xsdeepfwfm_deprecated_torch.models import deepfwfm
-    from xsdeepfwfm_deprecated_torch.ops.cuda import _build
     from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import (
-        int8_mlp, int8_mlp_reference, max_active_clusters, prof_steps, tower_route,
-        untile_weight)
+        int8_mlp, int8_mlp_reference, prof_steps, tower_route, untile_weight)
     from xsdeepfwfm_deprecated_torch.ops.embedding import packed_lookup_serving
     from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    phase(1, f"device {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
-             f"cuda {torch.version.cuda}")
-    print(card, flush=True)
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    logs = _build.build()
-    libs = {name: _build.load(name) for name in _build.sources()}
-    phase(2, f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}")
-    n_clusters, smem = max_active_clusters(416, 512)
-    print(f"  tower kernel at W=416: {smem} bytes of dynamic shared memory a block, the card "
-          f"holds {n_clusters} clusters of 8 blocks at once (B={BATCH} is {BATCH // 512})")
-
-    # ---- 3. model
-    cfg = flagship_config(full_criteo=True)
-    params_cpu = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg, device="cpu")
-    reqs = make_requests(cfg, args.seed + 1)
-    rows = params_cpu["emb2"]["dense"].shape[0]
-    check(rows == 1_326_055, f"flagship has {rows} packed rows")
-    phase(3, f"flagship {cfg.model_name}: {rows} packed rows, E={cfg.embedding_size}, "
-             f"tower {cfg.field_size * cfg.embedding_size}->{'x'.join(map(str, cfg.deep_layers))}"
-             f"->1, {deepfwfm.param_count(params_cpu)} params, requests {list(REQUEST_SIZES)}")
-
-    if args.sharded_only:
-        sharded_phase(args, cfg, card)
-        print(card)
-        return 0
-    if args.scale_only:
-        scale_phase(card)
-        print(card)
-        return 0
-    if args.pipeline_only:
-        pipeline_phase(card)
-        print(card)
-        return 0
-    if args.parity:
-        parity_run(*args.parity, card)
-        print(card)
-        return 0
 
     # ---- 4-5. the main path: fp32 then int8 serving, through the Predictor
     int8_mlp.launches = 0
@@ -2097,6 +2328,92 @@ def main(argv=None) -> int:
             check(not any("gemm_kernel" in key or "Memset" in key for key, _, _ in top),
                   "the int8 request still runs the layered route")
 
+    return {"launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err,
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": l_ms,
+            "layered_ms": layered_ms, "layered_max_abs_err": layered_err,
+            "kernels_per_call": kernels_per_call["cluster"],
+            "layered_kernels_per_call": kernels_per_call["layered"],
+            "one_wave_ms": one_wave, "one_wave_layered_ms": one_wave_layered,
+            "event_ms": k_ev, "layered_event_ms": layered_ev}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=100, help="timed calls per kernel")
+    ap.add_argument("--profile-sharded", action="store_true",
+                    help="profile a step of each exchange in phase 17 (the profiler's start on "
+                         "every rank adds tens of seconds to the phase)")
+    ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
+                    metavar="N", help="phases 1 to 3, then the groups of the listed phases "
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20), without the result lines")
+    ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
+                    help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
+                         "the fused tower's launches and its max |diff| against the plain "
+                         "version, without the result lines")
+    args = ap.parse_args(argv)
+
+    # ---- 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from xsdeepfwfm_deprecated_torch.entry import flagship_config
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda import _build
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import max_active_clusters
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    phase(1, f"device {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
+             f"cuda {torch.version.cuda}")
+    print(card, flush=True)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    libs = {name: _build.load(name) for name in _build.sources()}
+    phase(2, f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line or "error" in line.lower():
+                print(f"  {name}: {line.strip()}")
+    n_clusters, smem = max_active_clusters(416, 512)
+    print(f"  tower kernel at W=416: {smem} bytes of dynamic shared memory a block, the card "
+          f"holds {n_clusters} clusters of 8 blocks at once (B={BATCH} is {BATCH // 512})")
+
+    # ---- 3. model
+    cfg = flagship_config(full_criteo=True)
+    params_cpu = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg, device="cpu")
+    reqs = make_requests(cfg, args.seed + 1)
+    rows = params_cpu["emb2"]["dense"].shape[0]
+    check(rows == 1_326_055, f"flagship has {rows} packed rows")
+    phase(3, f"flagship {cfg.model_name}: {rows} packed rows, E={cfg.embedding_size}, "
+             f"tower {cfg.field_size * cfg.embedding_size}->{'x'.join(map(str, cfg.deep_layers))}"
+             f"->1, {deepfwfm.param_count(params_cpu)} params, requests {list(REQUEST_SIZES)}")
+
+    if args.phases:
+        groups = {first for first, last in PHASE_GROUPS
+                  for n in args.phases if first <= n <= last}
+        if 4 in groups:
+            serving_phases(args, cfg, card, params_cpu, reqs)
+        for first, run in ((8, training_phases), (12, deploy_phases), (17, sharded_phase)):
+            if first in groups:
+                run(args, cfg, card)
+        for first, run in ((18, scale_phase), (19, pipeline_phase)):
+            if first in groups:
+                run(card)
+        if 20 in groups:
+            dispatch_phase(args, cfg, card)
+        print(card)
+        return 0
+    if args.parity:
+        parity_run(*args.parity, card)
+        print(card)
+        return 0
+
+    # ---- 4-7. serving
+    served = serving_phases(args, cfg, card, params_cpu, reqs)
+
     # ---- 8-11. the training path
     trained = training_phases(args, cfg, card)
 
@@ -2112,20 +2429,15 @@ def main(argv=None) -> int:
     # ---- 19. the bin input pipeline
     piped = pipeline_phase(card)
 
+    # ---- 20. the compiled dispatch, graphed against eager
+    dispatched = dispatch_phase(args, cfg, card)
+
     # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
-        "launches": launches, "max_abs_err": max_err, "max_abs_diff": max_err, **trained, **deployed,
-        **sharded, **scaled, **piped,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": l_ms,
-        "layered_ms": layered_ms, "layered_max_abs_err": layered_err,
-        "kernels_per_call": kernels_per_call["cluster"],
-        "layered_kernels_per_call": kernels_per_call["layered"],
-        "one_wave_ms": one_wave, "one_wave_layered_ms": one_wave_layered,
-        "event_ms": k_ev, "layered_event_ms": layered_ev}]
+        **served, **trained, **deployed, **sharded, **scaled, **piped, **dispatched}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,160 @@
+"""The CUDA-graph capture helper (``utils/cuda_graph.py``): on the CPU, with
+stand-ins for CUDA's graph, capture and streams, the launch counts of a replay
+and a failed capture; on the card (marked ``cuda``), a graphed ``Predictor``
+and a graphed multi-step against their eager forms. No JAX here, so the card's
+machine runs the card's test: ``python -m pytest --noconftest
+tests/test_torch_cuda_graph.py -m cuda``.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from xsdeepfwfm_deprecated_torch import _tree
+from xsdeepfwfm_deprecated_torch.config import ModelConfig, TrainConfig
+from xsdeepfwfm_deprecated_torch.models import deepfwfm
+from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+from xsdeepfwfm_deprecated_torch.train import trainer
+from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+
+SIZES = (1, 1, 1, 5, 9, 30)
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+def _streams_on_the_cpu(monkeypatch, capture):
+    """CUDA's graph, capture and streams replaced by stand-ins for the CPU."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
+
+
+class _FakeGraph:
+    """A CUDA graph stand-in for the CPU: capture runs the function once,
+    replay runs it again, as the recorded kernels would."""
+
+    def __init__(self):
+        self.fn = None
+
+    def register_generator_state(self, gen):
+        self.generators = getattr(self, "generators", []) + [gen]
+
+    def replay(self):
+        self.fn()
+
+
+def test_graph_replay_counts_the_captured_launches(monkeypatch):
+    """A function that launches the fused tower twice: its warm-up and its
+    capture leave ``int8_mlp.launches`` as they found it, and each replay
+    adds the two launches that the capture recorded (CUDA's capture and
+    streams are replaced by stand-ins that run on the CPU)."""
+    graphs = []
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None):
+        graphs.append(graph)
+        yield
+
+    _streams_on_the_cpu(monkeypatch, capture)
+    out = torch.zeros(3)
+
+    def two_towers(x):
+        for _ in range(2):
+            int8_mlp.launches += 1
+            out.add_(x)
+        return out
+
+    int8_mlp.launches = 7
+    gen = torch.Generator()
+    g = cuda_graph.Graphed(two_towers, (torch.ones(3),), device=torch.device("cpu"),
+                           name="two towers", generators=(gen,))
+    graphs[0].fn = lambda: out.add_(2 * g.inputs[0])   # the recorded kernels, not the wrapper
+    assert int8_mlp.launches == 7 and g.launches == (2,)
+    assert graphs[0].generators == [gen]
+    res = g(torch.full((3,), 2.0))
+    assert int8_mlp.launches == 9 and res is out
+    g.replay()
+    assert int8_mlp.launches == 11
+
+
+def test_graph_capture_failure_names_the_function(monkeypatch):
+    """A capture that fails raises, naming the function, and leaves the
+    launch counts as they were."""
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None):
+        raise RuntimeError("operation not permitted when stream is capturing")
+        yield
+
+    _streams_on_the_cpu(monkeypatch, capture)
+    int8_mlp.launches = 3
+
+    def tower(x):
+        int8_mlp.launches += 1
+        return x
+
+    with pytest.raises(RuntimeError, match="the tower cannot be captured"):
+        cuda_graph.Graphed(tower, (torch.ones(2),), device=torch.device("cpu"), name="the tower")
+    assert int8_mlp.launches == 3
+
+
+@pytest.mark.cuda
+def test_graphed_predictor_and_multi_step_on_the_card():
+    """On the card: a dynamic-int8 Predictor at B=512 replays one graph a
+    request with one tower launch each, equal to the eager forward to the bit;
+    4 steps with dropout as one multi-step replay against 4 eager steps from
+    the same state and generator, under deterministic algorithms (the
+    scatter-add sorted, not atomic): equal to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from xsdeepfwfm_deprecated_torch.compression.quantization import convert
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    cfg = ModelConfig(field_size=len(SIZES), feature_sizes=SIZES, numerical=3, embedding_size=4,
+                      h_depth=2, deep_nodes=64, use_fwfm=True, use_deep=True, use_lw=True,
+                      use_fwlw=True)
+    rng = np.random.default_rng(1)
+    b, k = 512, 4
+    xi = rng.integers(0, SIZES[3:], size=(k, b, 3)).astype(np.int32)
+    xv = rng.normal(size=(k, b, 3)).astype(np.float32)
+    y = (rng.random((k, b)) < 0.4).astype(np.float32)
+    params = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    pred = Predictor(convert(params, cfg, "dynamic"))
+    int8_mlp.launches = 0
+    first, second = pred.logits(xi[0], xv[0]), pred.logits(xi[0], xv[0])
+    assert int8_mlp.launches == 2 and len(pred._graphs) == 1
+    with torch.inference_mode():
+        eager = pred._fn(pred._model, torch.from_numpy(xi[0]).cuda(),
+                         torch.from_numpy(xv[0]).cuda())
+    assert np.array_equal(first, second) and np.array_equal(first, eager.cpu().numpy())
+
+    tc = TrainConfig(batch_size=b, learning_rate=1e-2)
+    opt = trainer.make_optimizer(tc)
+    xi_k, xv_k, y_k = (torch.from_numpy(a).cuda() for a in (xi, xv, y))
+    mask_k = torch.ones((k, b), device="cuda")
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed in (False, True):
+            p = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+            s = opt.init(p)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            if graphed:
+                multi = trainer.make_multi_step(cfg, tc, opt)
+                multi(p, s, xi_k, xv_k, y_k, mask_k, gen)
+                assert len(multi._graphs) == 1
+            else:
+                for i in range(k):
+                    trainer.train_step(p, s, {"xi": xi_k[i], "xv": xv_k[i], "y": y_k[i],
+                                              "mask": mask_k[i]}, cfg, tc, opt, generator=gen)
+            runs.append(p)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, w in zip(*map(_tree.leaves, runs)):
+        assert torch.equal(a, w)

@@ -274,9 +274,9 @@ def test_pruned_fit_sparsity_trajectory_matches_jax():
 
 
 def test_steps_per_call_keeps_the_prune_schedule():
-    """With ``steps_per_call > 1`` the JAX package fuses ``prune_interval``
-    steps and one refresh into a dispatch; the port runs per-batch steps on
-    the same schedule, so the sparsity trajectories are equal."""
+    """With ``steps_per_call > 1`` both packages fuse ``prune_interval``
+    steps and one refresh into a dispatch (the port's K path, eager on the
+    CPU), on the per-batch schedule, so the sparsity trajectories are equal."""
     kw = dict(n_epochs=2, batch_size=32, learning_rate=1e-2, prune=True, warm=1, sparse=0.8,
               prune_interval=4, prune_omega=10.0, prune_damping=0.5, steps_per_call=4)
     est_j, est_t = pruned_fit_pair(kw, n=300)

@@ -429,8 +429,9 @@ def test_fit_matches_jax_fit():
 
 def test_steps_per_call_changes_no_result():
     """``steps_per_call`` and ``table_layout`` choose a dispatch form and a
-    table layout in the JAX package; the port accepts them and trains the
-    same parameters, bit for bit."""
+    table layout in the JAX package. With ``steps_per_call=4`` the port takes
+    its K path (``make_multi_step``, eager on the CPU) and trains the flat
+    table: the same parameters, bit for bit."""
     flags = dict(use_fwfm=True, use_deep=True, **NO_DROPOUT)
     xi, xv, y = fit_data(100, seed=3)
     runs = []

@@ -206,6 +206,17 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
     return params
 
 
+@torch.no_grad()
+def prune_params_(params: Dict, adaptive_sparse: Target, **kw) -> None:
+    """:func:`prune_params` written back into ``params``' own tensors, which
+    the optimizer state, a captured CUDA graph and the caller keep referring
+    to (``DeepFMEstimator.fit`` refreshes this way)."""
+    for old, new in zip(_tree.leaves(params), _tree.leaves(prune_params(params, adaptive_sparse,
+                                                                         **kw))):
+        if new is not old:
+            old.copy_(new)
+
+
 def make_masks(params: Dict, cfg: ModelConfig) -> Dict:
     """0/1 masks of the current sparsity pattern (for serving-time sparse
     kernels and checkpoint metadata; training zeroes in place)."""

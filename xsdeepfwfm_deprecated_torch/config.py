@@ -3,11 +3,13 @@ the CLI parser.
 
 Same fields, defaults, derived properties, checks and flags as
 ``xsdeepfwfm_deprecated_tpu/config.py``, so a config or a command line built
-for one package builds the same model and the same run in the other. Flags
-that only choose a TPU layout or dispatch form (``-steps_per_call``,
-``-table_layout``, ``-mesh_table_layout``) are accepted and change no result
-here. ``-mesh_data``/``-mesh_model``/``-exchange`` shard a fit over ranks
-started by ``torchrun`` (``parallel/mesh.py``).
+for one package builds the same model and the same run in the other.
+``-steps_per_call`` K > 1 sets the JAX package's dispatch form: ``fit`` steps
+K batches a dispatch (one CUDA graph replay on the card), with the results of
+K = 1. Flags that only choose a TPU layout (``-table_layout``,
+``-mesh_table_layout``) are accepted and change no result here.
+``-mesh_data``/``-mesh_model``/``-exchange`` shard a fit over ranks started
+by ``torchrun`` (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -143,8 +145,8 @@ class TrainConfig:
     kd_alpha: float = 0.9
     kd_temperature: float = 20.0
 
-    steps_per_call: int = 1          # accepted; the port runs plain per-batch steps,
-                                     # which give the same parameters
+    steps_per_call: int = 1          # train steps a dispatch (one device): one CUDA graph
+                                     # replay of K steps on the card, the same parameters
     table_layout: str = "super"      # super | flat: accepted; the port trains the flat
                                      # table, which gives the same parameters
     eval_train_rows: int = 0         # cap rows for the per-epoch train-metric eval
@@ -226,7 +228,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-prune_omega", default=100.0, type=float,
                    help="Adaptive-schedule Omega (the reference hardcodes 100)")
     p.add_argument("-steps_per_call", default=1, type=int,
-                   help="Accepted; changes no result (the port runs per-batch steps)")
+                   help="Train steps a dispatch (one CUDA graph replay on the card); "
+                        "changes no result")
     p.add_argument("-table_dtype", default="f32", type=str, choices=["f32", "bf16"],
                    help="Embedding-table storage dtype (bf16 halves table and moment bytes)")
     p.add_argument("-table_layout", default="super", type=str, choices=["super", "flat"],

@@ -2,8 +2,11 @@
 :class:`CompactModel`.
 
 Port of ``xsdeepfwfm_deprecated_tpu/serving/predictor.py:22-111``. The model
-moves to the device once, at construction; each request runs the eager
-forward there.
+moves to the device once, at construction. On the card each batch shape is
+captured into a CUDA graph on its first request (or by :meth:`Predictor.warmup`),
+as the JAX package traces one executable for each shape with ``jax.jit``;
+every request is then a copy into the graph's input buffers, one replay and
+one copy of the logits back. On the CPU the forward runs eagerly.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from ..config import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
 from ..ops.embedding import packed_lookup_serving
+from ..utils import cuda_graph
 from .compaction import CompactModel, compact_forward
 
 LAYOUTS = ("auto", "grouped", "flat", "super")
@@ -70,12 +74,19 @@ class Predictor:
             self._model = _tree.tree_map(lambda t: t.to(self.device), model)
             self._fn = lambda p, xi, xv: deepfwfm.forward(p, xi, xv, cfg,
                                                           lookup_fn=packed_lookup_serving)
+        self._graphs = cuda_graph.Graphs()
 
     @torch.inference_mode()
     def logits(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
-        xi = torch.as_tensor(np.asarray(xi, np.int32)).to(self.device)
-        xv = torch.as_tensor(np.asarray(xv, np.float32)).to(self.device)
-        return self._fn(self._model, xi, xv).cpu().numpy()
+        xi = torch.from_numpy(np.ascontiguousarray(xi, np.int32))
+        xv = torch.from_numpy(np.ascontiguousarray(xv, np.float32))
+        if self.device.type != "cuda":
+            return self._fn(self._model, xi.to(self.device), xv.to(self.device)).numpy()
+        shapes = (tuple(xi.shape), tuple(xv.shape))
+        graph = self._graphs.get(shapes, (), lambda: cuda_graph.Graphed(
+            lambda a, b: self._fn(self._model, a, b), (xi, xv), device=self.device,
+            name=f"the Predictor's forward of a {type(self._model).__name__} at {shapes}"))
+        return graph(xi, xv).cpu().numpy()
 
     def predict_proba(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
         return 1.0 / (1.0 + np.exp(-self.logits(xi, xv).astype(np.float64)))
@@ -84,7 +95,9 @@ class Predictor:
         return self.predict_proba(xi, xv) > 0.5
 
     def warmup(self, batch_sizes=(1, 8192)) -> "Predictor":
-        """Run each serving batch shape once (on CUDA this builds the kernels)."""
+        """Answer one request of each serving batch shape: on the card this
+        captures the shape's graph (and builds the kernels), as the JAX
+        ``warmup`` compiles for the serving shapes."""
         for b in batch_sizes:
             self.logits(np.zeros((b, self.cfg.num_categorical), np.int32),
                         np.zeros((b, self.cfg.numerical), np.float32))

@@ -10,22 +10,24 @@ cardinalities (the paper's row count) into the binary memmap layout of
 2. streams one full training epoch through ``ShardedBinPipeline.epoch_batches``
    on the host and records rows/s;
 3. with ``--card`` (``--tpu`` is kept as an alias), feeds the stream through
-   ``data.batching.prefetch_to_device`` into ``train.trainer.train_step`` on the
-   card, one step a batch, and reports the epoch's wall time against the same
-   number of steps timed on one cached batch: the host pipeline keeps the card
-   fed when the wall is within 15% of that budget. A second budget times the
-   steps on the epoch's last batches, already on the card, so that the feed's
-   share is also read against steps that differ only in having no feed.
+   ``data.batching.prefetch_to_device`` into the card's train step, and reports
+   the epoch's wall time against the same number of steps timed on cached
+   input: the host pipeline keeps the card fed when the wall is within 15% of
+   that budget. A second budget times the steps on the epoch's last input,
+   already on the card, so that the feed's share is also read against steps
+   that differ only in having no feed.
 
 The dataset goes to ``--dir`` (default ``synth41m_bin`` in the temporary
 directory, which follows ``TMPDIR``); a complete set of ``--rows`` rows there
 is reused, and a set of another size, or one left half written, is refused.
 
-The port has no multi-step dispatch (the K-steps scan is not ported, see
-``train/trainer.py``), so ``--k-steps`` is accepted and only sets how many
-steps make one timed rep of the budget. :func:`generate` makes the script's
-numpy draws in the script's order, so a seed gives the same ``.npy`` files,
-bit for bit, in both packages.
+As in the script, ``--k-steps`` K > 1 stacks K batches into a group and
+steps them through ``train.trainer.make_multi_step``, one CUDA graph replay a
+group on the card (an incomplete last group is dropped), and a timed rep of
+either budget is one replay; ``--k-steps 1`` steps each batch through
+``train_step``. :func:`generate` makes the script's numpy draws in the
+script's order, so a seed gives the same ``.npy`` files, bit for bit, in both
+packages.
 
 Usage:
   python -m xsdeepfwfm_deprecated_torch.tools.host_pipeline_41m --rows 41300000
@@ -47,11 +49,11 @@ import torch
 
 from ..config import ModelConfig, TrainConfig
 from ..data import native_loader
-from ..data.batching import prefetch_to_device
+from ..data.batching import prefetch_to_device, stack_groups
 from ..data.sharded_input import ShardedBinPipeline
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
-from ..train.trainer import make_optimizer, train_step
+from ..train.trainer import make_multi_step, make_optimizer, train_step
 from .synthetic_scale_run import FULL_CRITEO_CAT_SIZES, _zipf_cdfs
 
 BUDGET_REPS = 5          # timed reps of --k-steps steps on the last batch
@@ -188,18 +190,19 @@ def card_epoch(dirpath: str, feature_sizes, batch: int, k_steps: int, max_steps:
                mcfg: Optional[ModelConfig] = None, device: DeviceLike = None
                ) -> Tuple[dict, Dict]:
     """Feed the epoch's batches (``epoch_batches(batch, seed=4, epoch=0)``)
-    through ``prefetch_to_device`` into one ``train_step`` each, until
-    ``max_steps``; then time ``BUDGET_REPS * k_steps`` more steps on the last
-    batch, already on the device, for the pure-step budget (the script's), and
-    as many again over the loop's last ``BUDGET_REPS * k_steps`` batches, still
-    on the device, in order and round again where the loop had fewer (the
-    staged budget: the loop's own steps without the feed). Returns the
-    script's keys (``tpu_`` renamed ``card_``, with ``h2d_gb_per_s``;
-    ``card_step_ms_staged``, ``card_staged_budget_s`` and
-    ``wall_over_staged_budget`` for the staged budget; ``card_feed_s``: host
-    seconds the loop waited for its next batch, of which ``card_bin_s`` inside
-    ``epoch_batches``; ``card_device`` names the device the steps ran on) and
-    the trained parameters.
+    through ``prefetch_to_device`` into the train step until ``max_steps``:
+    one ``train_step`` a batch for ``k_steps`` 1, else one ``make_multi_step``
+    dispatch a group of ``k_steps`` batches (whole groups only, as the
+    script). Then time ``BUDGET_REPS`` more dispatches on the last input,
+    already on the device, for the pure-step budget (the script's), and as
+    many again over the loop's last ``BUDGET_REPS`` inputs, still on the
+    device, in order and round again where the loop had fewer (the staged
+    budget: the loop's own steps without the feed). Returns the script's keys
+    (``tpu_`` renamed ``card_``, with ``h2d_gb_per_s``; ``card_step_ms_staged``,
+    ``card_staged_budget_s`` and ``wall_over_staged_budget`` for the staged
+    budget; ``card_feed_s``: host seconds the loop waited for its next input,
+    of which ``card_bin_s`` inside ``epoch_batches``; ``card_device`` names the
+    device the steps ran on) and the trained parameters.
     ``mcfg`` defaults to :func:`model_config`; the parameters start from
     ``init_params`` seeded 0, dropout draws from a generator seeded 1."""
     device = resolve_device(device)
@@ -224,30 +227,42 @@ def card_epoch(dirpath: str, feature_sizes, batch: int, k_steps: int, max_steps:
                 return
             yield {"xi": b["index"], "xv": b["value"], "y": b["label"], "mask": ones}
 
+    if k_steps > 1:
+        multi = make_multi_step(mcfg, tcfg, opt)
+        inputs = (g for g in stack_groups(batches(), k_steps) if g["k_real"] == k_steps)
+
+        def dispatch(g) -> None:
+            multi(params, opt_state, g["xi"], g["xv"], g["y"], g["mask"], gen, k_real=k_steps)
+    else:
+        inputs = batches()
+
+        def dispatch(g) -> None:
+            train_step(params, opt_state, g, mcfg, tcfg, opt, generator=gen)
+
     n_budget = BUDGET_REPS * k_steps
-    staged: collections.deque = collections.deque(maxlen=n_budget)
+    staged: collections.deque = collections.deque(maxlen=BUDGET_REPS if k_steps > 1 else n_budget)
     steps, feed_s = 0, 0.0
     _sync(device)
     t0 = time.perf_counter()
-    feed = prefetch_to_device(batches(), device, size=3)
+    feed = prefetch_to_device(inputs, device, size=3)
     while steps < max_steps:
         t = time.perf_counter()
         g = next(feed, None)
         feed_s += time.perf_counter() - t
         if g is None:
             break
-        train_step(params, opt_state, g, mcfg, tcfg, opt, generator=gen)
+        dispatch(g)
         staged.append(g)
-        steps += 1
+        steps += k_steps
     _sync(device)
     wall = time.perf_counter() - t0
     if not staged:
-        raise ValueError(f"{dirpath} holds no full batch of {batch} rows")
+        raise ValueError(f"{dirpath} holds no full group of {k_steps} batches of {batch} rows")
 
     def timed_steps(pick) -> float:
         t1 = time.perf_counter()
-        for i in range(n_budget):
-            train_step(params, opt_state, pick(i), mcfg, tcfg, opt, generator=gen)
+        for i in range(n_budget // k_steps):
+            dispatch(pick(i))
         _sync(device)
         return (time.perf_counter() - t1) / n_budget
 
@@ -274,7 +289,7 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dir", default=default_dir())
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--k-steps", type=int, default=8,
-                    help="steps a timed rep of the budget (the port steps per batch)")
+                    help="batches a multi-step dispatch, and steps a timed rep of the budget")
     ap.add_argument("--max-steps", type=int, default=2000)
     ap.add_argument("--card", "--tpu", dest="card", action="store_true",
                     help="feed the stream into the train step on the card")

@@ -16,8 +16,8 @@ via ``sparse=0.9, emb_corr=1.0, emb_r=0.444``); ``--compare`` trains the dense
 baseline and the DeepLight run on the same data and reports the AUC gap;
 ``--qat`` trains with fake-quantized activations and serves the converted int8
 model through the :class:`Predictor`, whose fused int8 tower runs on the card
-at 8192 rows. ``--steps-per-call`` is accepted and steps per batch, as
-``DeepFMEstimator.fit`` does.
+at 8192 rows. ``--steps-per-call`` is ``fit``'s ``steps_per_call``: K steps a
+dispatch, one CUDA graph replay on the card.
 
 Usage:
   python -m xsdeepfwfm_deprecated_torch.tools.synthetic_scale_run --rows 10000000 \\
@@ -253,7 +253,7 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr-only", action="store_true")
     ap.add_argument("--steps-per-call", type=int, default=10,
-                    help="accepted; the port steps per batch")
+                    help="train steps a dispatch (one CUDA graph replay on the card)")
     ap.add_argument("--full-criteo-dims", action="store_true",
                     help="use the full paper-scale cardinalities of --shape")
     ap.add_argument("--shape", choices=list(SHAPES), default="criteo",

@@ -47,12 +47,16 @@ every global batch. What JAX's compiler does implicitly is written out:
   activation scale, in training and in eval (``ops.mlp.qat_mlp_forward``).
   The teacher's logits are cut into the ranks' rows with the batch.
 
-Not ported, because they are dispatch and layout forms with the same
-results: the K-steps-per-dispatch scan (``:88-159``), the scanned eval
-(``:171-195``) and super-row table packing, for one device and on a mesh.
-``steps_per_call > 1`` runs plain per-batch steps on the same prune
-schedule, and ``table_layout="super"`` and ``mesh_table_layout="super"``
-train the flat table.
+The JAX package's compiled dispatch is ported for one device, as CUDA
+graphs (``utils/cuda_graph.py``): :func:`make_multi_step` (``:88-159``) runs
+K full train steps over stacked ``(K, B, ...)`` batches, and optionally one
+prune refresh, as one graph replay on the card; :func:`make_scan_eval_fn`
+(``:171-195``) does the same for ``EVAL_SCAN_K`` eval batches. ``fit`` with
+``steps_per_call > 1`` steps through the first, ``_predict_logits`` through
+the second; on the CPU both run the same steps eagerly. On a mesh the steps
+stay per batch. Not ported: super-row table packing, a TPU layout with the
+same results (``table_layout="super"`` and ``mesh_table_layout="super"``
+train the flat table).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ import torch.nn.functional as F
 
 from .. import _tree
 from ..compression.distillation import kd_loss
-from ..compression.pruning import prune_params, sparsity_report
+from ..compression.pruning import prune_params_, sparsity_report
 from ..compression.quantization import convert
 from ..config import ModelConfig, TrainConfig
 from ..data import batching
@@ -79,7 +83,7 @@ from ..parallel import embedding_sharding as es
 from ..parallel import mesh as mesh_mod
 from ..serving.benchmark import run_benchmark
 from ..serving.predictor import Predictor
-from ..utils import debug
+from ..utils import cuda_graph, debug
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -243,6 +247,168 @@ def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
     return loss
 
 
+class MultiStep:
+    """K train steps over stacked ``(K, B, ...)`` batches in one dispatch,
+    then one prune refresh where ``prune_kw`` is given: what
+    :func:`make_multi_step` returns.
+
+    ``multi_step(params, opt_state, xi_k, xv_k, y_k, mask_k, generator,
+    teacher_k, adaptive, k_real=None)`` updates ``params`` and ``opt_state``
+    in place and returns the per-step losses ``(K,)`` on their device (a
+    copy: the next call does not overwrite it). ``teacher_k`` is the
+    ``(K, B)`` teacher logits of a KD step, else None; ``adaptive`` the
+    refresh's schedule value (a float or a 0-d tensor) where ``prune_kw`` is
+    given, else None.
+
+    A step whose mask is all padding is skipped and gives a loss of 0, as the
+    JAX scan's ``lax.cond`` skips it (``:121-139``): padding comes at the end,
+    and ``k_real`` (the number of real steps, which the host knows from its
+    group) saves reading the mask back to count them.
+
+    On the card a group of K real steps is one CUDA graph replay: captured on
+    the first call for each input shape and state (the parameters and
+    optimizer state are updated at the addresses they were captured with, so
+    a refresh writes into them in place), with ``adaptive`` a device input
+    filled before each replay and the dropout generator registered with the
+    graph, so that the K steps draw the numbers that K eager steps would. A
+    group with padding steps runs its real steps eagerly, then the refresh.
+    On the CPU every step runs eagerly."""
+
+    def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
+                 use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
+                 prune_kw: Optional[Dict] = None):
+        self.mcfg, self.tcfg, self.optimizer = mcfg, tcfg, optimizer
+        self.use_kd, self.prune_kw = use_kd, prune_kw
+        self.forward_fn = forward_fn or deepfwfm.forward
+        self._graphs = cuda_graph.Graphs()
+
+    def _steps(self, params: Dict, opt_state: Any, xi_k, xv_k, y_k, mask_k, generator,
+               teacher_k, adaptive, live: List[bool]) -> torch.Tensor:
+        losses = []
+        for i, run in enumerate(live):
+            if not run:
+                losses.append(torch.zeros((), device=mask_k.device))
+                continue
+            batch = {"xi": xi_k[i], "xv": xv_k[i], "y": y_k[i], "mask": mask_k[i]}
+            losses.append(train_step(
+                params, opt_state, batch, self.mcfg, self.tcfg, self.optimizer,
+                generator=generator, forward_fn=self.forward_fn,
+                teacher_logits=None if teacher_k is None else teacher_k[i]))
+        if self.prune_kw is not None:
+            prune_params_(params, adaptive, **self.prune_kw)
+        return torch.stack(losses)
+
+    def __call__(self, params: Dict, opt_state: Any, xi_k: torch.Tensor, xv_k: torch.Tensor,
+                 y_k: torch.Tensor, mask_k: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 teacher_k: Optional[torch.Tensor] = None, adaptive: Any = None, *,
+                 k_real: Optional[int] = None) -> torch.Tensor:
+        if (teacher_k is None) == self.use_kd:
+            raise ValueError("teacher_k is the KD multi-step's input, and only its")
+        if (adaptive is None) == (self.prune_kw is not None):
+            raise ValueError("adaptive is the pruning multi-step's input, and only its")
+        k = xi_k.shape[0]
+        device = _tree.leaves(params)[0].device
+        if k_real is None:
+            live = (mask_k.reshape(k, -1).sum(dim=1) > 0).tolist()
+        else:
+            live = [i < k_real for i in range(k)]
+        inputs = [xi_k, xv_k, y_k, mask_k] + ([teacher_k] if self.use_kd else [])
+        if self.prune_kw is not None:       # a 0-d device tensor, made by a fill
+            adaptive = (adaptive.to(device=device, dtype=torch.float32)
+                        if isinstance(adaptive, torch.Tensor)
+                        else torch.full((), float(adaptive), dtype=torch.float32, device=device))
+        if not (device.type == "cuda" and all(live)):
+            inputs = [t.to(device, non_blocking=True) for t in inputs]
+            return self._steps(params, opt_state, *inputs[:4], generator,
+                               inputs[4] if self.use_kd else None, adaptive, live)
+        if torch.is_anomaly_enabled():
+            raise RuntimeError("autograd's anomaly detection (utils.debug.nan_debugging) reads "
+                               "values back every step and cannot be captured: train with "
+                               "steps_per_call=1 inside it")
+        if self.prune_kw is not None:
+            inputs.append(adaptive)
+        shapes = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        state = cuda_graph.state_key(params, opt_state) + (id(generator),)
+        graph = self._graphs.get(shapes, state, lambda: self._capture(
+            params, opt_state, generator, inputs, device))
+        return graph(*inputs).clone()
+
+    def _capture(self, params, opt_state, generator, inputs, device) -> cuda_graph.Graphed:
+        k = inputs[0].shape[0]
+
+        def unpack(xs):
+            teacher = xs[4] if self.use_kd else None
+            return list(xs[:4]) + [teacher, xs[-1] if self.prune_kw is not None else None]
+
+        def steps(*xs):
+            xi, xv, y, mask, teacher, adaptive = unpack(xs)
+            return self._steps(params, opt_state, xi, xv, y, mask, generator, teacher, adaptive,
+                               [True] * k)
+
+        def warmup(*xs):   # one step and the refresh, on clones of the state
+            xi, xv, y, mask, teacher, adaptive = unpack(xs)
+            clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
+            self._steps(clone(params), clone(opt_state), xi[:1], xv[:1], y[:1], mask[:1],
+                        cuda_graph.clone_generator(generator),
+                        None if teacher is None else teacher[:1], adaptive, [True])
+
+        name = f"make_multi_step({getattr(self.forward_fn, '__qualname__', self.forward_fn)})"
+        return cuda_graph.Graphed(steps, inputs, device=device, name=name, warmup=warmup,
+                                  generators=() if generator is None else (generator,))
+
+
+def make_multi_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
+                    use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
+                    prune_kw: Optional[Dict] = None) -> MultiStep:
+    """K optimizer steps a dispatch over stacked ``(K, B, ...)`` batches (the
+    JAX package's ``make_multi_step``, ``:88-159``), with one DeepLight prune
+    refresh after them when ``prune_kw`` (keyword arguments of
+    :func:`..compression.pruning.prune_params`) is given. See
+    :class:`MultiStep`."""
+    return MultiStep(mcfg, tcfg, optimizer, use_kd=use_kd, forward_fn=forward_fn,
+                     prune_kw=prune_kw)
+
+
+EVAL_SCAN_K = 8
+
+
+class ScanEval:
+    """The eval forward of K stacked batches in one dispatch:
+    ``scan_eval(params, xi_k, xv_k)`` gives the ``(K, B)`` logits (a copy,
+    which the next call does not overwrite). On the card one CUDA graph
+    replay, captured for each input shape and parameter tree; on the CPU K
+    eager forwards."""
+
+    def __init__(self, mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None):
+        self.mcfg = mcfg
+        self.forward_fn = forward_fn or deepfwfm.forward
+        self._graphs = cuda_graph.Graphs()
+
+    def _forwards(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self.forward_fn(params, xi_k[i], xv_k[i], self.mcfg)
+                            for i in range(xi_k.shape[0])])
+
+    @torch.inference_mode()
+    def __call__(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
+        device = _tree.leaves(params)[0].device
+        if device.type != "cuda":
+            return self._forwards(params, xi_k.to(device), xv_k.to(device))
+        graph = self._graphs.get(
+            (tuple(xi_k.shape), tuple(xv_k.shape)), cuda_graph.state_key(params),
+            lambda: cuda_graph.Graphed(
+                lambda xi, xv: self._forwards(params, xi, xv), (xi_k, xv_k), device=device,
+                name=f"make_scan_eval_fn({getattr(self.forward_fn, '__qualname__', '')})"))
+        return graph(xi_k, xv_k).clone()
+
+
+def make_scan_eval_fn(mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None) -> ScanEval:
+    """K eval batches a dispatch over stacked ``(K, B, ...)`` inputs → ``(K, B)``
+    logits (the JAX package's ``make_scan_eval_fn``, ``:174-195``); see
+    :class:`ScanEval`."""
+    return ScanEval(mcfg, forward_fn)
+
+
 class DeepFMEstimator:
     """sklearn-estimator-shaped wrapper (the reference ``DeepFMs`` surface).
 
@@ -283,6 +449,7 @@ class DeepFMEstimator:
         self._table_shards = 1
         self._batch_both = False
         self._blocks = False        # params and optimizer state hold this rank's row blocks
+        self._scan_eval: Optional[ScanEval] = None   # _predict_logits' groups, made on first use
 
     # ------------------------------------------------------------------ util
 
@@ -447,7 +614,17 @@ class DeepFMEstimator:
         and epoch counter and continues training.
 
         ``keep_best``: keep host copies of the params at the epoch of the best
-        valid AUC in ``self.best_params`` / ``self.best_epoch``."""
+        valid AUC in ``self.best_params`` / ``self.best_epoch``.
+
+        ``steps_per_call > 1`` steps K batches a dispatch through
+        :func:`make_multi_step`, as the JAX ``fit`` does (``:464-560``): K is
+        ``prune_interval`` when pruning, and each group of K batches ends in
+        the refresh that the per-batch schedule makes there; the teacher's
+        logits are stacked into the same groups. On the card a group is one
+        CUDA graph replay; a last group of fewer real batches steps them one
+        by one, then refreshes. The parameters, the losses and the schedule
+        are those of ``steps_per_call=1``. On a mesh the steps stay per batch
+        (a sharded group would capture collectives: gloo's cannot be)."""
         tc = self.tcfg
         do_prune = tc.prune if prune is None else bool(prune)
         prune_kw = dict(
@@ -513,6 +690,17 @@ class DeepFMEstimator:
             if self._table_shards > 1:
                 prune_kw.update(mesh=mesh, table_axes=self._table_axes,
                                 dense_rows=type(self).model_spec(self.mcfg).dense_rows)
+        # K steps a dispatch (one device): K = prune_interval when pruning, so that
+        # each group ends in the refresh the per-batch schedule makes there
+        k_steps = tc.steps_per_call if mesh is None and tc.steps_per_call > 1 else 1
+        fuse_prune = do_prune and k_steps > 1
+        if fuse_prune:
+            k_steps = tc.prune_interval
+        if k_steps > 1:
+            multi_kw = dict(use_kd=teacher_model is not None, forward_fn=forward_fn)
+            multi_step = make_multi_step(self.mcfg, tc, optimizer, **multi_kw)
+            multi_prune = (make_multi_step(self.mcfg, tc, optimizer, prune_kw=prune_kw, **multi_kw)
+                           if fuse_prune else None)
         n_iter = 0
         self.train_result, self.valid_result = [], []
         # total sparsity % per epoch, parallel to train_result / valid_result
@@ -534,33 +722,49 @@ class DeepFMEstimator:
                 batches = _with_teacher(batches, teacher_logits_all, tc.batch_size)
             if mesh is not None:
                 batches = self._local_batches(batches)
-            for i_batch, batch in enumerate(batching.prefetch_to_device(batches, self.device)):
-                if epoch >= tc.warm:
-                    n_iter += 1
-                # the loss stays on the device: reading it here would make the host
-                # wait for every step. It is fetched once, at the end of the epoch
-                epoch_losses.append(train_step(
-                    self.params, self.opt_state, batch, self.mcfg, tc, optimizer, reduce=reduce,
-                    generator=step_generator, teacher_logits=batch.get("teacher"),
-                    forward_fn=forward_fn, group=group))
-                if debug.finite_checks_enabled():
-                    debug.require_finite(epoch_losses[-1], f"the loss of step {self._step}")
-                self._step += 1
+            if k_steps > 1:
+                prune_now = fuse_prune and epoch >= tc.warm
+                groups = batching.stack_groups(batches, k_steps)
+                for stacked in batching.prefetch_to_device(groups, self.device):
+                    k_real = stacked["k_real"]
+                    if epoch >= tc.warm:
+                        n_iter += k_real
+                    step = multi_prune if prune_now else multi_step
+                    losses = step(self.params, self.opt_state, stacked["xi"], stacked["xv"],
+                                  stacked["y"], stacked["mask"], generator, stacked.get("teacher"),
+                                  tc.adaptive_sparse(n_iter) if prune_now else None,
+                                  k_real=k_real)[:k_real]
+                    epoch_losses.append(losses)
+                    if debug.finite_checks_enabled():
+                        debug.require_finite(losses, f"the losses of steps {self._step} on")
+                    self._step += k_real
+            else:
+                for i_batch, batch in enumerate(batching.prefetch_to_device(batches, self.device)):
+                    if epoch >= tc.warm:
+                        n_iter += 1
+                    # the loss stays on the device: reading it here would make the host
+                    # wait for every step. It is fetched once, at the end of the epoch
+                    epoch_losses.append(train_step(
+                        self.params, self.opt_state, batch, self.mcfg, tc, optimizer, reduce=reduce,
+                        generator=step_generator, teacher_logits=batch.get("teacher"),
+                        forward_fn=forward_fn, group=group))
+                    if debug.finite_checks_enabled():
+                        debug.require_finite(epoch_losses[-1], f"the loss of step {self._step}")
+                    self._step += 1
 
-                # DeepLight pruning inside the loop: after every prune_interval real
-                # batches and after the last one, n_iter counting post-warm-up batches
-                is_last = (i_batch + 1) * tc.batch_size >= n_train
-                if do_prune and epoch >= tc.warm and (
-                        is_last or i_batch % tc.prune_interval == tc.prune_interval - 1):
-                    self.params = prune_params(self.params, tc.adaptive_sparse(n_iter),
-                                               **prune_kw)
+                    # DeepLight pruning inside the loop: after every prune_interval real
+                    # batches and after the last one, n_iter counting post-warm-up batches
+                    is_last = (i_batch + 1) * tc.batch_size >= n_train
+                    if do_prune and epoch >= tc.warm and (
+                            is_last or i_batch % tc.prune_interval == tc.prune_interval - 1):
+                        prune_params_(self.params, tc.adaptive_sparse(n_iter), **prune_kw)
 
             if epoch_losses:   # the epoch's one read of the losses
-                losses = torch.stack(epoch_losses)
+                losses = torch.cat([l.reshape(-1) for l in epoch_losses])
                 if mesh is not None:        # each rank's share of every step's mean
                     mesh.all_reduce(losses, self._batch_axes())
                 self.last_epoch_losses = losses.tolist()
-                self.last_epoch_mean_loss = sum(self.last_epoch_losses) / len(epoch_losses)
+                self.last_epoch_mean_loss = sum(self.last_epoch_losses) / len(losses)
                 self.logger.debug("epoch %d mean train-step loss: %.6f"
                                   % (epoch + 1, self.last_epoch_mean_loss))
             rep = self._sparsity_report(num_total_original)
@@ -615,21 +819,36 @@ class DeepFMEstimator:
     def _predict_logits(self, Xi: np.ndarray, Xv: np.ndarray,
                         batch_size: Optional[int] = None) -> np.ndarray:
         """Batched eval-mode forward with a padded tail → logits on the host.
-        Every batch is issued before the one copy back. On a mesh the batch
-        is rounded up to the shard count, each rank runs its rows, and the
-        logits are gathered, so every rank returns them all."""
+        Every batch is issued before the one copy back. On one device the
+        full groups of ``EVAL_SCAN_K`` batches go through the scanned eval
+        (one CUDA graph replay each on the card), the rest batch by batch, as
+        the JAX package's (``:706-726``). On a mesh the batch is rounded up to
+        the shard count, each rank runs its rows, and the logits are
+        gathered, so every rank returns them all."""
         bs = batch_size or (self.tcfg.eval_batch_size * (2 if self.mcfg.use_ffm else 1))
         n_shards = self._n_batch_shards()
         bs = -(-bs // n_shards) * n_shards
         Xi = np.asarray(Xi, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
         Xv = np.asarray(Xv, dtype=np.float32).reshape(Xi.shape[0], -1)
         forward_fn = self._forward_fn()
+        out = []
+        pos = 0
+        if self.mesh is None:
+            k = EVAL_SCAN_K
+            pos = Xi.shape[0] // (k * bs) * (k * bs)
+            if self._scan_eval is None or self._scan_eval.forward_fn is not forward_fn:
+                self._scan_eval = make_scan_eval_fn(self.mcfg, forward_fn)
+            groups = ({"xi": Xi[lo:lo + k * bs].reshape(k, bs, -1),
+                       "xv": Xv[lo:lo + k * bs].reshape(k, bs, -1)}
+                      for lo in range(0, pos, k * bs))
+            for group in batching.prefetch_to_device(groups, self.device):
+                out.append(self._scan_eval(self.params, group["xi"], group["xv"]).reshape(-1))
+        Xi, Xv = Xi[pos:], Xv[pos:]
         dummy_y = np.zeros(Xi.shape[0], dtype=np.float32)
         batches = batching.iter_batches(Xi, Xv, dummy_y, bs)
         if self.mesh is not None:
             axes = self._batch_axes()
             batches = (mesh_mod.shard_batch(b, self.mesh, axes, bs) for b in batches)
-        out = []
         for batch in batching.prefetch_to_device(batches, self.device):
             logits = forward_fn(self.params, batch["xi"], batch["xv"], self.mcfg)
             if self.mesh is not None:
