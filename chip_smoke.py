@@ -57,8 +57,17 @@ Phases, each printed on its own line:
      to one rank's to the bit, a fit each; the QAT model gathered, converted and served in
      int8 through the fused tower, held to its plain version and the CPU; dropout at rate
      0.3 on the card equal to the CPU's bit for bit; ms per sharded step beside the
-     unsharded one, and the bytes of each collective a step. On four cards, also cli.main_all,
-     cli.kd and cli.quantization -quantization_aware 1 under torchrun over NCCL.
+     unsharded one, and the bytes of each collective a step. Then the grouped fits: 24 global
+     batches at steps_per_call=10 against 1 on the same mesh under deterministic algorithms,
+     a2a_grid and a pruned leg (a refresh every 10 steps), and on four cards also a2a, psum,
+     KD and QAT: the first loss equal, sparsity within two parameters, every value within
+     STEP_TOL, the fits' collectives equal, the form fit's mesh line names; the scanned eval
+     on the mesh equal to per-batch forwards. On four cards (NCCL) a full group is one CUDA
+     graph replay on every rank (two a fit, else the phase fails), and 10 steps and a refresh
+     as one replay against the same run eagerly give ms a sharded step in both forms beside
+     one rank's, with equal bytes; on one card the gloo ranks run the groups eagerly. On four
+     cards, also cli.main_all, cli.kd and cli.quantization -quantization_aware 1 under
+     torchrun over NCCL, and cli.main_all -steps_per_call 10.
  18. quality at scale through xsdeepfwfm_deprecated_torch.tools: 1M synthetic rows at the
      full-Criteo cardinalities (seed 0): the oracle test AUC equals the JAX package's record;
      one dense epoch reaches the AUC floor; DeepLight (warm 1, 1 pruned epoch, Omega 0.5)
@@ -103,6 +112,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -1113,6 +1123,9 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
     del est
     out.update(kd_qat_rank(rank, device, seed, cfg, sizes, mesh, gathered, batch0, gen_of,
                            to_dev, quiet))
+    t0 = time.perf_counter()
+    out["grouped"] = grouped_rank(rank, device, seed, cfg, mesh, gathered, quiet, profile)
+    out["grouped_s"] = time.perf_counter() - t0
     out["rank_s"] = time.perf_counter() - t_rank
     return out
 
@@ -1212,6 +1225,184 @@ def kd_qat_rank(rank: int, device, seed: int, cfg, sizes, mesh, teacher_params, 
     return out
 
 
+GROUP_K = 10                      # steps_per_call of phase 17's grouped fits: a refresh every 10
+GROUP_STEPS = 2 * GROUP_K + 4     # global batches of a grouped fit: two full groups, a short one
+PRUNE_GROUPED = {**PRUNE_17, "prune_interval": GROUP_K}
+
+
+class MeshLines(logging.Handler):
+    """Keeps the ``mesh:`` lines that a fit logs (on rank 0)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines: list = []
+
+    def emit(self, record):
+        if record.getMessage().startswith("mesh:"):
+            self.lines.append(record.getMessage())
+
+
+def grouped_rank(rank: int, device, seed: int, cfg, mesh, teacher_params, quiet,
+                 profile: bool) -> dict:
+    """Phase 17's grouped fits on one rank. Each leg fits GROUP_STEPS global
+    batches at steps_per_call=GROUP_K and at 1 on the same mesh under torch's
+    deterministic algorithms, counting the graph replays of the first; the
+    a2a_grid leg also reads the scanned eval against every batch per batch.
+    Over gloo two legs (a2a_grid, and pruned with a refresh every GROUP_K
+    steps), whose groups run eagerly; over NCCL also a2a, psum, KD and QAT,
+    then, from each fit's state, GROUP_K steps and a refresh as one replay
+    against the same run eagerly (ms, the bytes of the collectives and, with
+    ``profile``, the device's busy share of both)."""
+    import dataclasses
+
+    from xsdeepfwfm_deprecated_torch.cli.kd import STUDENT_DEEP_NODES, STUDENT_H_DEPTH
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.train import trainer
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+
+    b = TRAIN_BATCH
+    xi, xv, y = make_training_rows(cfg, seed + 32, GROUP_STEPS * b)
+    to_dev = lambda d: {k: (torch.from_numpy(np.ascontiguousarray(v)).reshape(v.shape).to(device)
+                            if isinstance(v, np.ndarray) else v) for k, v in d.items()}
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    teacher = trainer.DeepFMEstimator(cfg, sharded_train_config(seed, b), logger=quiet,
+                                      device=device)
+    teacher.params = teacher_params
+    legs = {"a2a_grid": (cfg, "a2a_grid", {}, None), "pruned": (cfg, "a2a_grid", PRUNE_GROUPED, None)}
+    if mesh.capturable:
+        legs.update({"a2a": (cfg, "a2a", {}, None), "psum": (cfg, "psum", {}, None),
+                     "kd": (dataclasses.replace(cfg, deep_nodes=STUDENT_DEEP_NODES,
+                                                h_depth=STUDENT_H_DEPTH), KD_EXCHANGE, {}, teacher),
+                     "qat": (dataclasses.replace(cfg, quantization_aware=True), QAT_EXCHANGE, {},
+                             None)})
+    lines = MeshLines()
+    logger = logging.getLogger(f"chip_smoke.grouped{rank}")
+    logger.handlers, logger.propagate = [lines], False
+    logger.setLevel(logging.INFO)
+    replay = cuda_graph.Graphed.replay
+    out = {}
+    for leg, (leg_cfg, exchange, extra, leg_teacher) in legs.items():
+        t_leg = time.perf_counter()
+        res = out[leg] = {"exchange": exchange}
+        fits = {}
+        with deterministic():
+            for k in (GROUP_K, 1):
+                tc = sharded_train_config(seed, b, exchange, SHARD_MESH, steps_per_call=k, **extra)
+                est = fits[k] = trainer.DeepFMEstimator(leg_cfg, tc, logger=logger,
+                                                        device=device)
+                est.mesh = mesh
+                replays = []
+
+                def counted_replay(graph):
+                    replays.append(graph.name)
+                    return replay(graph)
+                cuda_graph.Graphed.replay = counted_replay
+                mesh.traffic.clear()
+                sync()
+                t0 = time.perf_counter()
+                try:
+                    est.fit(xi, xv, y, teacher_model=leg_teacher)
+                    sync()
+                finally:
+                    cuda_graph.Graphed.replay = replay
+                res[k] = dict(fit_s=time.perf_counter() - t0, losses=est.last_epoch_losses,
+                              traffic=list(mesh.traffic),
+                              mesh_line=lines.lines.pop() if lines.lines else "",
+                              step_replays=sum("make_multi_step" in r for r in replays),
+                              nonzero=deepfwfm.nonzero_param_count(est.gather_params()))
+        res["share"], res["far"] = within_step_tol(fits[GROUP_K].params, fits[1].params)
+        est = fits[GROUP_K]
+        del fits
+        if leg == "a2a_grid":    # eight scanned batches, then a tail, against every batch alone
+            n_eval = trainer.EVAL_SCAN_K * b + 1000
+            replays = []
+            cuda_graph.Graphed.replay = counted_replay
+            try:
+                scanned = est._predict_logits(xi[:n_eval], xv[:n_eval], batch_size=b)
+            finally:
+                cuda_graph.Graphed.replay = replay
+            scan_k, trainer.EVAL_SCAN_K = trainer.EVAL_SCAN_K, 10 ** 9
+            try:
+                per_batch = est._predict_logits(xi[:n_eval], xv[:n_eval], batch_size=b)
+            finally:
+                trainer.EVAL_SCAN_K = scan_k
+            res["eval"] = dict(rows=n_eval, diff=float(np.abs(scanned - per_batch).max()),
+                               replays=sum("make_scan_eval_fn" in r for r in replays))
+        if mesh.capturable and leg != "pruned":
+            res.update(graphed_against_eager(est, leg_cfg, xi, xv, y, leg_teacher, seed, to_dev,
+                                             profile))
+        res["leg_s"] = time.perf_counter() - t_leg
+        del est
+    return out
+
+
+def graphed_against_eager(est, cfg, xi, xv, y, teacher, seed: int, to_dev, profile: bool) -> dict:
+    """From a sharded fit's state: GROUP_K steps and a prune refresh as one
+    graph replay against the same steps and refresh run eagerly. Returns ms a
+    step of both (between CUDA events, median of SHARD_TIMED), the bytes of
+    the collectives a step, whether both forms moved the same, and with
+    ``profile`` each form's device ms and busy share under the profiler."""
+    from xsdeepfwfm_deprecated_torch.compression import pruning
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard
+    from xsdeepfwfm_deprecated_torch.parallel import mesh as mesh_mod
+    from xsdeepfwfm_deprecated_torch.train import trainer
+
+    b, k, tc, mesh, device = TRAIN_BATCH, GROUP_K, est.tcfg, est.mesh, est.device
+    batches = batching.iter_batches(xi[:k * b], xv[:k * b], y[:k * b], b)
+    if teacher is not None:
+        batches = trainer._with_teacher(batches, teacher._predict_logits(xi[:k * b], xv[:k * b]), b)
+    local = list(est._local_batches(batches))
+    stacked = to_dev(next(batching.stack_groups(local, k)))
+    local = [to_dev({key: v for key, v in bt.items() if key != "n_valid"}) for bt in local]
+    gen = BatchShard(torch.Generator(device=device).manual_seed(seed + 1), b,
+                     mesh_mod.batch_rows(mesh, est._batch_axes(), b).start)
+    prune_kw = dict(emb_r=tc.emb_r, emb_corr=tc.emb_corr, prune_fm=True, prune_deep=True,
+                    prune_r=tc.prune_r)
+    if est._table_shards > 1:
+        prune_kw.update(mesh=mesh, table_axes=est._table_axes,
+                        dense_rows=type(est).model_spec(cfg).dense_rows)
+    opt, reduce, group, fwd = (trainer.make_optimizer(tc), est._reducer(), est._batch_group(),
+                               est._forward_fn())
+    multi = trainer.make_multi_step(cfg, tc, opt, use_kd=teacher is not None, forward_fn=fwd,
+                                    prune_kw=prune_kw, mesh=mesh, reduce=reduce, group=group)
+
+    def graphed():
+        multi(est.params, est.opt_state, stacked["xi"], stacked["xv"], stacked["y"],
+              stacked["mask"], gen, stacked.get("teacher"), 0.01, k_real=k,
+              count_k=stacked["count"])
+
+    def eager():
+        for bt in local:
+            trainer.train_step(est.params, est.opt_state, bt, cfg, tc, opt, reduce=reduce,
+                               generator=gen, forward_fn=fwd, group=group,
+                               teacher_logits=bt.get("teacher"))
+        pruning.prune_params_(est.params, 0.01, **prune_kw)
+
+    res = {"graphed_ms": step_times(graphed, device, SHARD_TIMED) / k,
+           "eager_ms": step_times(eager, device, SHARD_TIMED) / k}
+    for name, fn in (("graphed", graphed), ("eager", eager)):
+        res[f"{name}_host_ms"] = host_ms(lambda: (fn(), torch.cuda.synchronize(device)),
+                                         SHARD_TIMED) / k
+    moved = {}
+    for name, fn in (("eager", eager), ("graphed", graphed)):
+        mesh.traffic.clear()
+        fn()
+        moved[name] = list(mesh.traffic)
+    res["same_bytes"] = moved["graphed"] == moved["eager"]
+    res["bytes_step"] = sum(n_bytes for *_, n_bytes in moved["eager"]) / k
+    res["collectives_step"] = len(moved["eager"]) / k
+    if profile and device.type == "cuda":
+        # NCCL's kernels wait on the device for their peers: the compute kernels alone say
+        # how busy the rank keeps its card
+        res["profile"] = {}
+        for name, fn in (("graphed", graphed), ("eager", eager)):
+            wall, busy, rows = profile_top(fn, calls=3, top=10 ** 6)
+            compute = sum(ms for key, ms, _ in rows if "nccl" not in key.lower())
+            res["profile"][name] = (wall, busy, compute, rows[:3])
+    return res
+
+
 def pieces_fit(cfg, tc, rows, n_pieces: int, device):
     """The arithmetic of a sharded fit on one device: every step's loss and
     gradients computed on ``n_pieces`` row pieces of the global batch, each
@@ -1274,6 +1465,89 @@ def relu_flips(cfg, params, rows, seed: int, batch: int, n_pieces: int):
     return out
 
 
+def nvlink_rate():
+    """Card 0's NVLink rate in GB/s a direction, the sum of its links' as
+    ``nvidia-smi nvlink -s`` reports them, printed; None where it reports none."""
+    import re
+    try:
+        out = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"], capture_output=True,
+                             text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    links = [float(x) for x in re.findall(r"Link \d+: ([\d.]+) GB/s", out)]
+    print(f"  NVLink of card 0 (nvidia-smi nvlink -s): {len(links)} links, "
+          f"{sum(links):.1f} GB/s a direction" if links else
+          "  NVLink of card 0: nvidia-smi reports no link rate", flush=True)
+    return sum(links) or None
+
+
+def grouped_checks(results: list, backend: str, one_group_ms: dict, where: str) -> None:
+    """Phase 17's lines and checks of the grouped fits (``grouped_rank``):
+    every leg's fit at steps_per_call=GROUP_K against 1 on the same mesh, its
+    replays (one a full group over NCCL, none over gloo, where the groups run
+    eagerly), and over NCCL ms a step graphed against eager beside one rank's."""
+    r0 = results[0]["grouped"]
+    graphed = backend == "nccl"
+    nvlink_gbs = nvlink_rate() if graphed else None
+    full_groups = GROUP_STEPS // GROUP_K
+    form = f"{GROUP_K} steps a replay" if graphed else f"{GROUP_K} steps eager a group"
+    print(f"  grouped fits: {GROUP_STEPS} global batches of {TRAIN_BATCH} at steps_per_call="
+          f"{GROUP_K} against 1 on the same mesh, under deterministic algorithms, the pruned leg "
+          f"refreshing every {GROUP_K} steps; fit's mesh line: "
+          f"\"{r0['a2a_grid'][GROUP_K]['mesh_line']}\" ({results[0]['grouped_s']:.1f} s in all) "
+          f"{where}")
+    for leg, res in r0.items():
+        grouped, single = res[GROUP_K], res[1]
+        share = min(r["grouped"][leg]["share"] for r in results)
+        far = max(r["grouped"][leg]["far"] for r in results)
+        same_traffic = all(r["grouped"][leg][GROUP_K]["traffic"] == r["grouped"][leg][1]["traffic"]
+                           for r in results)
+        replays = [r["grouped"][leg][GROUP_K]["step_replays"] for r in results]
+        first_gap = abs(grouped["losses"][0] - single["losses"][0])
+        line = (f"  {leg} ({res['exchange']}): {replays[0]} multi-step replays on each rank for "
+                f"{full_groups} full groups; first loss {grouped['losses'][0]:.6f} vs "
+                f"{single['losses'][0]:.6f}; non-zeros {grouped['nonzero']} vs "
+                f"{single['nonzero']}; within STEP_TOL {share:.6f} of the values on every rank "
+                f"(furthest {far:.3e}); the fits' collectives equal: {same_traffic}; fit "
+                f"{grouped['fit_s']:.2f} s vs {single['fit_s']:.2f} s")
+        if "eval" in res:
+            ev = res["eval"]
+            line += (f"; scanned eval of {ev['rows']} rows ({ev['replays']} replays) vs per "
+                     f"batch max |diff| {ev['diff']:.1e}")
+        if "graphed_ms" in res:
+            line += (f"; a step with a refresh every {GROUP_K}: graphed {res['graphed_ms']:.3f} "
+                     f"ms, eager {res['eager_ms']:.3f} ms between CUDA events, graphed "
+                     f"{res['graphed_host_ms']:.3f} ms, eager {res['eager_host_ms']:.3f} ms by "
+                     f"the host clock (one rank, events: graphed {one_group_ms['graphed']:.3f}, "
+                     f"eager {one_group_ms['eager']:.3f}); {res['collectives_step']:.1f} "
+                     f"collectives and {res['bytes_step']:.0f} B a step, the same in both forms: "
+                     f"{res['same_bytes']}")
+            if nvlink_gbs:
+                line += (f", {res['bytes_step'] / nvlink_gbs / 1e6:.4f} ms at card 0's NVLink "
+                         f"rate")
+        print(line + f" {where}", flush=True)
+        for form_name, (wall, busy, compute, top) in res.get("profile", {}).items():
+            print(f"    profile of rank 0, {GROUP_K} steps and a refresh {form_name}: "
+                  f"{wall:.3f} ms under the profiler, device events {busy:.3f} ms, of them "
+                  f"compute kernels (NCCL's left out) {compute:.3f} ms ({compute / wall:.0%} "
+                  f"busy); the largest: " + "; ".join(f"{key} {ms:.4f} ms x{n:g}"
+                                                      for key, ms, n in top) + f" {where}")
+        check(form in grouped["mesh_line"] and form not in single["mesh_line"],
+              f"{leg}: fit's mesh line names another form than {form!r}: {grouped['mesh_line']}")
+        check(replays == [full_groups if graphed else 0] * len(results),
+              f"{leg}: {replays} multi-step replays for {full_groups} full groups over {backend}")
+        check(first_gap <= 1e-6, f"{leg}: the first loss differs by {first_gap}")
+        check(abs(grouped["nonzero"] - single["nonzero"]) <= 2,
+              f"{leg}: non-zeros {grouped['nonzero']} grouped, {single['nonzero']} per batch")
+        check(share == 1.0, f"{leg}: {share} of the values within {STEP_TOL}, furthest {far}")
+        check(same_traffic, f"{leg}: the grouped fit's collectives differ from the per-batch fit's")
+        if "eval" in res:
+            check(res["eval"]["diff"] == 0.0 and res["eval"]["replays"] == (1 if graphed else 0),
+                  f"scanned eval on the mesh: {res['eval']}")
+        if "graphed_ms" in res:
+            check(res["same_bytes"], f"{leg}: a replay's collectives differ from the eager steps'")
+
+
 def torchrun_clis(card: str) -> None:
     """With a card for each of four ranks: the training CLIs under
     torchrun on a (2, 2) mesh over NCCL, on tiny-criteo with the flagship's
@@ -1290,14 +1564,14 @@ def torchrun_clis(card: str) -> None:
     flags = ["-dataset", "tiny-criteo", "-n_epochs", "1", *FLAGSHIP_FLAGS, "-mesh_data", "2",
              "-mesh_model", "2"]
     with tempfile.TemporaryDirectory() as tmp:
-        def run(module: str, extra) -> None:
+        def run(module: str, extra, expect: str = "backend nccl") -> None:
             cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                    "--nproc_per_node", "4", "-m", f"xsdeepfwfm_deprecated_torch.cli.{module}",
                    *flags, *extra]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
                                  timeout=600)
-            check(res.returncode == 0 and "backend nccl" in res.stdout,
+            check(res.returncode == 0 and "backend nccl" in res.stdout and expect in res.stdout,
                   f"torchrun cli.{module}: exit {res.returncode}\n{res.stdout[-3000:]}\n"
                   f"{res.stderr[-3000:]}")
             lines = [line.split(" - INFO - ", 1)[-1].strip() for line in res.stdout.splitlines()
@@ -1309,6 +1583,7 @@ def torchrun_clis(card: str) -> None:
         teacher = glob.glob(os.path.join(tmp, "saved_models", "*.npz"))[0][:-len(".npz")]
         run("kd", ["-save_model_path", teacher])
         run("quantization", ["-save_model_path", teacher, "-quantization_aware", "1"])
+        run("main_all", ["-steps_per_call", str(GROUP_K)], f"{GROUP_K} steps a replay")
 
 
 def sharded_phase(args, cfg, card: str) -> dict:
@@ -1322,6 +1597,7 @@ def sharded_phase(args, cfg, card: str) -> dict:
 
     from xsdeepfwfm_deprecated_torch import _tree
     from xsdeepfwfm_deprecated_torch.cli.kd import STUDENT_DEEP_NODES, STUDENT_H_DEPTH
+    from xsdeepfwfm_deprecated_torch.compression import pruning
     from xsdeepfwfm_deprecated_torch.compression.quantization import (
         convert, quantized_forward, quantized_lookup_serving)
     from xsdeepfwfm_deprecated_torch.data import batching
@@ -1361,6 +1637,25 @@ def sharded_phase(args, cfg, card: str) -> dict:
                                                    cycle[next(step_i) % 4], cfg, one.tcfg, opt,
                                                    generator=gen), dev, SHARD_TIMED)
     del cycle
+    # the one-rank step with a refresh every GROUP_K, graphed and eager, as the ranks time theirs
+    xi_g, xv_g, y_g = make_training_rows(cfg, args.seed + 32, GROUP_K * TRAIN_BATCH)
+    group = list(batching.prefetch_to_device(batching.iter_batches(xi_g, xv_g, y_g, TRAIN_BATCH),
+                                             dev))
+    stacked = {k: torch.stack([bt[k] for bt in group]) for k in ("xi", "xv", "y", "mask")}
+    prune_kw = dict(emb_r=one.tcfg.emb_r, emb_corr=one.tcfg.emb_corr, prune_fm=True,
+                    prune_deep=True, prune_r=one.tcfg.prune_r)
+    multi = trainer.make_multi_step(cfg, one.tcfg, opt, prune_kw=prune_kw)
+
+    def one_eager():
+        for bt in group:
+            trainer.train_step(one.params, one.opt_state, bt, cfg, one.tcfg, opt, generator=gen)
+        pruning.prune_params_(one.params, 0.01, **prune_kw)
+    one_group_ms = {
+        "graphed": step_times(lambda: multi(one.params, one.opt_state, stacked["xi"],
+                                            stacked["xv"], stacked["y"], stacked["mask"], gen,
+                                            None, 0.01, k_real=GROUP_K), dev, SHARD_TIMED) / GROUP_K,
+        "eager": step_times(one_eager, dev, SHARD_TIMED) / GROUP_K}
+    del group, stacked, multi
 
     # the ranks run while this process computes the rest of the references (after
     # the one-rank step was timed alone)
@@ -1372,7 +1667,7 @@ def sharded_phase(args, cfg, card: str) -> dict:
             box["results"] = run_ranks(sharded_rank, n_ranks, backend=backend, devices=devices,
                                        workdir=tmp.name, args=(args.seed, cfg, sizes, tmp.name,
                                                                args.profile_sharded),
-                                       timeout_s=300.0)
+                                       timeout_s=480.0)
         except BaseException as e:    # re-raised below, in this thread
             box["error"] = e
 
@@ -1582,6 +1877,7 @@ def sharded_phase(args, cfg, card: str) -> dict:
           f"QAT: the tower input's scale {qat['scales'][:1]} against one rank's "
           f"{qat['scales_one'][:1]}")
     check(qat_eval_gap <= FLIP_LOGIT, f"QAT eval on the mesh against one device: {qat_eval_gap}")
+    grouped_checks(results, backend, one_group_ms, where)
     if backend == "nccl":
         torchrun_clis(card)
     return {"launches_sharded_path": launches + qat_launches,

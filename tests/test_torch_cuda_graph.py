@@ -1,6 +1,7 @@
 """The CUDA-graph capture helper (``utils/cuda_graph.py``): on the CPU, with
-stand-ins for CUDA's graph, capture and streams, the launch counts of a replay
-and a failed capture; on the card (marked ``cuda``), a graphed ``Predictor``
+stand-ins for CUDA's graph, capture and streams, the launch counts and a
+mesh's ``traffic`` through a replay, a sharded step's generator, and a failed
+capture; on the card (marked ``cuda``), a graphed ``Predictor``
 and a graphed multi-step against their eager forms. No JAX here, so the card's
 machine runs the card's test: ``python -m pytest --noconftest
 tests/test_torch_cuda_graph.py -m cuda``.
@@ -58,7 +59,7 @@ def test_graph_replay_counts_the_captured_launches(monkeypatch):
     graphs = []
 
     @contextlib.contextmanager
-    def capture(graph, stream=None):
+    def capture(graph, stream=None, capture_error_mode="global"):
         graphs.append(graph)
         yield
 
@@ -76,7 +77,7 @@ def test_graph_replay_counts_the_captured_launches(monkeypatch):
     g = cuda_graph.Graphed(two_towers, (torch.ones(3),), device=torch.device("cpu"),
                            name="two towers", generators=(gen,))
     graphs[0].fn = lambda: out.add_(2 * g.inputs[0])   # the recorded kernels, not the wrapper
-    assert int8_mlp.launches == 7 and g.launches == (2,)
+    assert int8_mlp.launches == 7 and g.captured == (2,)
     assert graphs[0].generators == [gen]
     res = g(torch.full((3,), 2.0))
     assert int8_mlp.launches == 9 and res is out
@@ -89,7 +90,7 @@ def test_graph_capture_failure_names_the_function(monkeypatch):
     launch counts as they were."""
 
     @contextlib.contextmanager
-    def capture(graph, stream=None):
+    def capture(graph, stream=None, capture_error_mode="global"):
         raise RuntimeError("operation not permitted when stream is capturing")
         yield
 
@@ -103,6 +104,89 @@ def test_graph_capture_failure_names_the_function(monkeypatch):
     with pytest.raises(RuntimeError, match="the tower cannot be captured"):
         cuda_graph.Graphed(tower, (torch.ones(2),), device=torch.device("cpu"), name="the tower")
     assert int8_mlp.launches == 3
+
+
+def test_graph_replay_appends_the_captured_traffic(monkeypatch):
+    """A function that records two collectives in a mesh's ``traffic``: the
+    warm-up and the capture leave the list as they found it, the barrier runs
+    between them, the capture is ``thread_local`` (NCCL's watchdog thread
+    queries events meanwhile), and each replay appends the two captured
+    entries; a capture that fails raises, naming the function, and leaves the
+    list as it was."""
+    modes, calls = [], []
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None, capture_error_mode="global"):
+        modes.append(capture_error_mode)
+        calls.append("capture")
+        graph.fn = lambda: None          # the recorded kernels: nothing to run here
+        yield
+
+    _streams_on_the_cpu(monkeypatch, capture)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    traffic = [("all-reduce", "world", 4, 8)]
+
+    def step(x):
+        traffic.append(("all-to-all", "world", 4, 64))
+        traffic.append(("all-reduce", "data", 2, 16))
+        return x
+
+    g = cuda_graph.Graphed(step, (torch.ones(2),), device=torch.device("cpu"), name="a step",
+                           counters=(cuda_graph.Log(traffic),),
+                           barrier=lambda: calls.append("barrier"))
+    assert calls == ["barrier", "capture"] and modes == ["thread_local"]
+    assert traffic == [("all-reduce", "world", 4, 8)]
+    assert g.captured == (0, [("all-to-all", "world", 4, 64), ("all-reduce", "data", 2, 16)])
+    g(torch.ones(2))
+    g.replay()
+    assert traffic == [("all-reduce", "world", 4, 8)] + 2 * [("all-to-all", "world", 4, 64),
+                                                             ("all-reduce", "data", 2, 16)]
+
+    @contextlib.contextmanager
+    def failing(graph, stream=None, capture_error_mode="global"):
+        traffic.append(("all-gather", "model", 2, 32))
+        raise RuntimeError("operation not permitted when stream is capturing")
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", failing)
+    before = list(traffic)
+    with pytest.raises(RuntimeError, match="a sharded step cannot be captured"):
+        cuda_graph.Graphed(step, (torch.ones(2),), device=torch.device("cpu"),
+                           name="a sharded step", counters=(cuda_graph.Log(traffic),))
+    assert traffic == before
+
+
+def test_batch_shard_generator_is_registered_and_not_advanced(monkeypatch):
+    """A sharded step draws through ``ops.mlp.BatchShard``: the graph
+    registers the generator inside it, and a warm-up on
+    ``clone_generator`` of it (a ``BatchShard`` around a clone) draws the
+    same numbers and leaves the step's generator where it was."""
+    from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard, dropout
+    graphs = []
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None, capture_error_mode="global"):
+        graphs.append(graph)
+        yield
+
+    _streams_on_the_cpu(monkeypatch, capture)
+    gen = torch.Generator().manual_seed(3)
+    shard = BatchShard(gen, 8, 4)
+    state = gen.get_state()
+    warm = []
+    x = torch.ones(4, 3)
+
+    def warmup(x):
+        clone = cuda_graph.clone_generator(shard)
+        assert isinstance(clone, BatchShard) and clone.generator is not gen
+        assert (clone.batch, clone.start) == (8, 4)
+        warm.append(dropout(clone, x, 0.5, True))
+
+    cuda_graph.Graphed(lambda x: x, (x,), device=torch.device("cpu"), name="a sharded step",
+                       warmup=warmup, generators=(shard,))
+    assert graphs[0].generators == [gen]
+    assert torch.equal(gen.get_state(), state)
+    torch.testing.assert_close(warm[0], dropout(shard, x, 0.5, True), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

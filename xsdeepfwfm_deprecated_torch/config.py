@@ -5,8 +5,9 @@ Same fields, defaults, derived properties, checks and flags as
 ``xsdeepfwfm_deprecated_tpu/config.py``, so a config or a command line built
 for one package builds the same model and the same run in the other.
 ``-steps_per_call`` K > 1 sets the JAX package's dispatch form: ``fit`` steps
-K batches a dispatch (one CUDA graph replay on the card), with the results of
-K = 1. Flags that only choose a TPU layout (``-table_layout``,
+K batches a dispatch (one CUDA graph replay on the card, on one device and on
+a mesh over NCCL; over gloo the K steps of a group run eagerly), with the
+results of K = 1. Flags that only choose a TPU layout (``-table_layout``,
 ``-mesh_table_layout``) are accepted and change no result here.
 ``-mesh_data``/``-mesh_model``/``-exchange`` shard a fit over ranks started
 by ``torchrun`` (``parallel/mesh.py``).
@@ -145,8 +146,9 @@ class TrainConfig:
     kd_alpha: float = 0.9
     kd_temperature: float = 20.0
 
-    steps_per_call: int = 1          # train steps a dispatch (one device): one CUDA graph
-                                     # replay of K steps on the card, the same parameters
+    steps_per_call: int = 1          # train steps a dispatch: one CUDA graph replay of K
+                                     # steps on the card (a mesh: over NCCL), the same
+                                     # parameters
     table_layout: str = "super"      # super | flat: accepted; the port trains the flat
                                      # table, which gives the same parameters
     eval_train_rows: int = 0         # cap rows for the per-epoch train-metric eval

@@ -24,7 +24,9 @@ implicitly).
 * **Backend**: ``nccl`` when each rank has its own card; ``gloo`` on the CPU
   and when several ranks share one card (NCCL refuses two ranks on one GPU).
   gloo carries CUDA tensors by staging them through the host; the gathers,
-  scatter-adds and the model stay on the card.
+  scatter-adds and the model stay on the card. NCCL's collectives can be
+  captured into a CUDA graph, gloo's cannot (:attr:`Mesh.capturable`), so a
+  sharded ``fit`` replays its groups of K steps over NCCL only.
 
 Every collective goes through a :class:`Mesh` method, which appends its
 kind, group (``world``, ``data`` or ``model``), group size and bytes to
@@ -93,6 +95,12 @@ class Mesh:
         return self.data * self.model
 
     @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: NCCL's run
+        on the card's streams, gloo's through the host."""
+        return self.backend == "nccl"
+
+    @property
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
 
@@ -127,10 +135,10 @@ class Mesh:
         n = self.axis_size(axes)
         if n == 1:
             return t.unsqueeze(0)
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t.contiguous(), group=self.group(axes))
+        out = t.new_empty((n * t.numel(),))     # one buffer, as a CUDA graph can hold it
+        dist.all_gather_into_tensor(out, t.reshape(-1).contiguous(), group=self.group(axes))
         self._record("all-gather", axes, n * t.numel() * t.element_size())
-        return torch.stack(parts)
+        return out.view((n,) + tuple(t.shape))
 
     def all_to_all(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
         """Block ``j`` of ``t``'s first dimension goes to the rank of index ``j``
@@ -145,8 +153,11 @@ class Mesh:
 
     def barrier(self) -> None:
         """Every rank waits for the others (an all-reduce, so that it takes the
-        mesh's device under either backend; not counted as traffic)."""
+        mesh's device under either backend, then the device, which NCCL's
+        all-reduce does not make the host wait for; not counted as traffic)."""
         dist.all_reduce(torch.zeros(1, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,

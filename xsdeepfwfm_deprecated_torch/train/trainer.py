@@ -47,16 +47,18 @@ every global batch. What JAX's compiler does implicitly is written out:
   activation scale, in training and in eval (``ops.mlp.qat_mlp_forward``).
   The teacher's logits are cut into the ranks' rows with the batch.
 
-The JAX package's compiled dispatch is ported for one device, as CUDA
-graphs (``utils/cuda_graph.py``): :func:`make_multi_step` (``:88-159``) runs
-K full train steps over stacked ``(K, B, ...)`` batches, and optionally one
-prune refresh, as one graph replay on the card; :func:`make_scan_eval_fn`
+The JAX package's compiled dispatch is ported as CUDA graphs
+(``utils/cuda_graph.py``): :func:`make_multi_step` (``:88-159``) runs K full
+train steps over stacked ``(K, B, ...)`` batches, and optionally one prune
+refresh, as one graph replay on the card; :func:`make_scan_eval_fn`
 (``:171-195``) does the same for ``EVAL_SCAN_K`` eval batches. ``fit`` with
 ``steps_per_call > 1`` steps through the first, ``_predict_logits`` through
-the second; on the CPU both run the same steps eagerly. On a mesh the steps
-stay per batch. Not ported: super-row table packing, a TPU layout with the
-same results (``table_layout="super"`` and ``mesh_table_layout="super"``
-train the flat table).
+the second, on one device and on a mesh alike, as in JAX. On a mesh a
+replay holds the rank's collectives: over NCCL, where a CUDA graph can hold
+them; over gloo (and on the CPU) the same groups run their steps eagerly.
+Not ported: super-row table packing, a TPU layout with the same results
+(``table_layout="super"`` and ``mesh_table_layout="super"`` train the flat
+table).
 """
 
 from __future__ import annotations
@@ -247,16 +249,24 @@ def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
     return loss
 
 
+def _collectives(mesh: Optional[mesh_mod.Mesh]) -> Dict[str, Any]:
+    """What a graph of a mesh's steps passes to :class:`..utils.cuda_graph.Graphed`:
+    the mesh's traffic as a counter, and its barrier before the capture."""
+    if mesh is None:
+        return {}
+    return dict(counters=(cuda_graph.Log(mesh.traffic),), barrier=mesh.barrier)
+
+
 class MultiStep:
     """K train steps over stacked ``(K, B, ...)`` batches in one dispatch,
     then one prune refresh where ``prune_kw`` is given: what
     :func:`make_multi_step` returns.
 
     ``multi_step(params, opt_state, xi_k, xv_k, y_k, mask_k, generator,
-    teacher_k, adaptive, k_real=None)`` updates ``params`` and ``opt_state``
-    in place and returns the per-step losses ``(K,)`` on their device (a
-    copy: the next call does not overwrite it). ``teacher_k`` is the
-    ``(K, B)`` teacher logits of a KD step, else None; ``adaptive`` the
+    teacher_k, adaptive, k_real=None, count_k=None)`` updates ``params`` and
+    ``opt_state`` in place and returns the per-step losses ``(K,)`` on their
+    device (a copy: the next call does not overwrite it). ``teacher_k`` is
+    the ``(K, B)`` teacher logits of a KD step, else None; ``adaptive`` the
     refresh's schedule value (a float or a 0-d tensor) where ``prune_kw`` is
     given, else None.
 
@@ -265,109 +275,129 @@ class MultiStep:
     and ``k_real`` (the number of real steps, which the host knows from its
     group) saves reading the mask back to count them.
 
+    On a ``mesh`` each step is this rank's sharded step: ``reduce`` sums the
+    gradients over the ranks, ``group`` is the batch's ranks (KD's softmax,
+    QAT's scale), ``generator`` a :class:`..ops.mlp.BatchShard`, and
+    ``count_k`` the ``(K,)`` real-row counts of the global batches, which the
+    losses divide by. Both ``k_real`` and ``count_k`` come from the global
+    group and are required there: a rank's share of the last global batch can
+    be all padding while another rank's is not (the JAX scan tests the sum of
+    the global mask), and a rank that skipped a step would leave the others'
+    collectives waiting.
+
     On the card a group of K real steps is one CUDA graph replay: captured on
     the first call for each input shape and state (the parameters and
     optimizer state are updated at the addresses they were captured with, so
     a refresh writes into them in place), with ``adaptive`` a device input
     filled before each replay and the dropout generator registered with the
-    graph, so that the K steps draw the numbers that K eager steps would. A
-    group with padding steps runs its real steps eagerly, then the refresh.
-    On the CPU every step runs eagerly."""
+    graph, so that the K steps draw the numbers that K eager steps would. On
+    a mesh the graph holds every collective of the K steps and the refresh,
+    which NCCL's process groups allow and gloo's do not: over gloo (and on
+    the CPU) every step runs eagerly, in the same order. A group with
+    padding steps runs its real steps eagerly, then the refresh, on every
+    rank alike."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
                  use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
-                 prune_kw: Optional[Dict] = None):
+                 prune_kw: Optional[Dict] = None, mesh: Optional[mesh_mod.Mesh] = None,
+                 reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                 group: Optional[mesh_mod.BatchGroup] = None):
         self.mcfg, self.tcfg, self.optimizer = mcfg, tcfg, optimizer
         self.use_kd, self.prune_kw = use_kd, prune_kw
         self.forward_fn = forward_fn or deepfwfm.forward
+        self.mesh, self.reduce, self.group = mesh, reduce, group
+        self.capture = mesh is None or mesh.capturable     # chosen once, from the backend
         self._graphs = cuda_graph.Graphs()
 
-    def _steps(self, params: Dict, opt_state: Any, xi_k, xv_k, y_k, mask_k, generator,
-               teacher_k, adaptive, live: List[bool]) -> torch.Tensor:
+    def _steps(self, params: Dict, opt_state: Any, k_in: Dict[str, torch.Tensor], generator,
+               live: List[bool]) -> torch.Tensor:
         losses = []
         for i, run in enumerate(live):
             if not run:
-                losses.append(torch.zeros((), device=mask_k.device))
+                losses.append(torch.zeros((), device=k_in["mask"].device))
                 continue
-            batch = {"xi": xi_k[i], "xv": xv_k[i], "y": y_k[i], "mask": mask_k[i]}
+            batch = {key: k_in[key][i] for key in ("xi", "xv", "y", "mask", "count")
+                     if key in k_in}
             losses.append(train_step(
                 params, opt_state, batch, self.mcfg, self.tcfg, self.optimizer,
-                generator=generator, forward_fn=self.forward_fn,
-                teacher_logits=None if teacher_k is None else teacher_k[i]))
+                reduce=self.reduce, generator=generator, forward_fn=self.forward_fn,
+                group=self.group, teacher_logits=k_in["teacher"][i] if self.use_kd else None))
         if self.prune_kw is not None:
-            prune_params_(params, adaptive, **self.prune_kw)
+            prune_params_(params, k_in["adaptive"], **self.prune_kw)
         return torch.stack(losses)
 
     def __call__(self, params: Dict, opt_state: Any, xi_k: torch.Tensor, xv_k: torch.Tensor,
                  y_k: torch.Tensor, mask_k: torch.Tensor,
-                 generator: Optional[torch.Generator] = None,
+                 generator: Optional[cuda_graph.Generator] = None,
                  teacher_k: Optional[torch.Tensor] = None, adaptive: Any = None, *,
-                 k_real: Optional[int] = None) -> torch.Tensor:
+                 k_real: Optional[int] = None,
+                 count_k: Optional[torch.Tensor] = None) -> torch.Tensor:
         if (teacher_k is None) == self.use_kd:
             raise ValueError("teacher_k is the KD multi-step's input, and only its")
         if (adaptive is None) == (self.prune_kw is not None):
             raise ValueError("adaptive is the pruning multi-step's input, and only its")
+        if self.mesh is not None and (k_real is None or count_k is None):
+            raise ValueError("a sharded multi-step takes k_real and count_k from the global "
+                             "group: a rank's rows of a batch can be all padding where another "
+                             "rank's are not, and every rank must run the same steps")
         k = xi_k.shape[0]
         device = _tree.leaves(params)[0].device
         if k_real is None:
             live = (mask_k.reshape(k, -1).sum(dim=1) > 0).tolist()
         else:
             live = [i < k_real for i in range(k)]
-        inputs = [xi_k, xv_k, y_k, mask_k] + ([teacher_k] if self.use_kd else [])
+        k_in = {"xi": xi_k, "xv": xv_k, "y": y_k, "mask": mask_k, "teacher": teacher_k,
+                "count": count_k}
+        k_in = {key: t.to(device, non_blocking=True) for key, t in k_in.items() if t is not None}
         if self.prune_kw is not None:       # a 0-d device tensor, made by a fill
-            adaptive = (adaptive.to(device=device, dtype=torch.float32)
-                        if isinstance(adaptive, torch.Tensor)
-                        else torch.full((), float(adaptive), dtype=torch.float32, device=device))
-        if not (device.type == "cuda" and all(live)):
-            inputs = [t.to(device, non_blocking=True) for t in inputs]
-            return self._steps(params, opt_state, *inputs[:4], generator,
-                               inputs[4] if self.use_kd else None, adaptive, live)
+            k_in["adaptive"] = (adaptive.to(device=device, dtype=torch.float32)
+                                if isinstance(adaptive, torch.Tensor)
+                                else torch.full((), float(adaptive), dtype=torch.float32,
+                                                device=device))
+        if not (device.type == "cuda" and self.capture and all(live)):
+            return self._steps(params, opt_state, k_in, generator, live)
         if torch.is_anomaly_enabled():
             raise RuntimeError("autograd's anomaly detection (utils.debug.nan_debugging) reads "
                                "values back every step and cannot be captured: train with "
                                "steps_per_call=1 inside it")
-        if self.prune_kw is not None:
-            inputs.append(adaptive)
-        shapes = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        shapes = tuple((key, tuple(t.shape), t.dtype) for key, t in k_in.items())
         state = cuda_graph.state_key(params, opt_state) + (id(generator),)
         graph = self._graphs.get(shapes, state, lambda: self._capture(
-            params, opt_state, generator, inputs, device))
-        return graph(*inputs).clone()
+            params, opt_state, generator, k_in, device))
+        return graph(*k_in.values()).clone()
 
-    def _capture(self, params, opt_state, generator, inputs, device) -> cuda_graph.Graphed:
-        k = inputs[0].shape[0]
-
-        def unpack(xs):
-            teacher = xs[4] if self.use_kd else None
-            return list(xs[:4]) + [teacher, xs[-1] if self.prune_kw is not None else None]
+    def _capture(self, params, opt_state, generator, k_in: Dict[str, torch.Tensor],
+                 device) -> cuda_graph.Graphed:
+        names, k = tuple(k_in), k_in["xi"].shape[0]
 
         def steps(*xs):
-            xi, xv, y, mask, teacher, adaptive = unpack(xs)
-            return self._steps(params, opt_state, xi, xv, y, mask, generator, teacher, adaptive,
-                               [True] * k)
+            return self._steps(params, opt_state, dict(zip(names, xs)), generator, [True] * k)
 
         def warmup(*xs):   # one step and the refresh, on clones of the state
-            xi, xv, y, mask, teacher, adaptive = unpack(xs)
+            one = {key: x if key == "adaptive" else x[:1] for key, x in zip(names, xs)}
             clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
-            self._steps(clone(params), clone(opt_state), xi[:1], xv[:1], y[:1], mask[:1],
-                        cuda_graph.clone_generator(generator),
-                        None if teacher is None else teacher[:1], adaptive, [True])
+            self._steps(clone(params), clone(opt_state), one,
+                        cuda_graph.clone_generator(generator), [True])
 
         name = f"make_multi_step({getattr(self.forward_fn, '__qualname__', self.forward_fn)})"
-        return cuda_graph.Graphed(steps, inputs, device=device, name=name, warmup=warmup,
-                                  generators=() if generator is None else (generator,))
+        return cuda_graph.Graphed(
+            steps, list(k_in.values()), device=device, name=name, warmup=warmup,
+            generators=() if generator is None else (generator,), **_collectives(self.mesh))
 
 
 def make_multi_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
                     use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
-                    prune_kw: Optional[Dict] = None) -> MultiStep:
+                    prune_kw: Optional[Dict] = None, mesh: Optional[mesh_mod.Mesh] = None,
+                    reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                    group: Optional[mesh_mod.BatchGroup] = None) -> MultiStep:
     """K optimizer steps a dispatch over stacked ``(K, B, ...)`` batches (the
     JAX package's ``make_multi_step``, ``:88-159``), with one DeepLight prune
     refresh after them when ``prune_kw`` (keyword arguments of
-    :func:`..compression.pruning.prune_params`) is given. See
+    :func:`..compression.pruning.prune_params`) is given; on a ``mesh``, a
+    rank's sharded steps with ``reduce`` and ``group``. See
     :class:`MultiStep`."""
     return MultiStep(mcfg, tcfg, optimizer, use_kd=use_kd, forward_fn=forward_fn,
-                     prune_kw=prune_kw)
+                     prune_kw=prune_kw, mesh=mesh, reduce=reduce, group=group)
 
 
 EVAL_SCAN_K = 8
@@ -376,37 +406,50 @@ EVAL_SCAN_K = 8
 class ScanEval:
     """The eval forward of K stacked batches in one dispatch:
     ``scan_eval(params, xi_k, xv_k)`` gives the ``(K, B)`` logits (a copy,
-    which the next call does not overwrite). On the card one CUDA graph
-    replay, captured for each input shape and parameter tree; on the CPU K
-    eager forwards."""
+    which the next call does not overwrite). On a ``mesh`` the inputs are
+    this rank's rows of each batch, and each batch's logits are gathered
+    over the ranks of ``axes``, so that every rank returns the ``(K,
+    B_global)`` logits. On the card one CUDA graph replay, captured for each
+    input shape and parameter tree (with the gathers inside, over NCCL); on
+    the CPU and over gloo K eager forwards."""
 
-    def __init__(self, mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None):
+    def __init__(self, mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
+                 mesh: Optional[mesh_mod.Mesh] = None, axes: Optional[mesh_mod.Axes] = None):
         self.mcfg = mcfg
         self.forward_fn = forward_fn or deepfwfm.forward
+        self.mesh, self.axes = mesh, axes
         self._graphs = cuda_graph.Graphs()
 
     def _forwards(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
-        return torch.stack([self.forward_fn(params, xi_k[i], xv_k[i], self.mcfg)
-                            for i in range(xi_k.shape[0])])
+        out = []
+        for i in range(xi_k.shape[0]):
+            logits = self.forward_fn(params, xi_k[i], xv_k[i], self.mcfg)
+            if self.mesh is not None:
+                logits = self.mesh.all_gather(logits, self.axes).reshape(-1)
+            out.append(logits)
+        return torch.stack(out)
 
     @torch.inference_mode()
     def __call__(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
-        device = _tree.leaves(params)[0].device
-        if device.type != "cuda":
+        device, mesh = _tree.leaves(params)[0].device, self.mesh
+        if device.type != "cuda" or not (mesh is None or mesh.capturable):
             return self._forwards(params, xi_k.to(device), xv_k.to(device))
         graph = self._graphs.get(
             (tuple(xi_k.shape), tuple(xv_k.shape)), cuda_graph.state_key(params),
             lambda: cuda_graph.Graphed(
                 lambda xi, xv: self._forwards(params, xi, xv), (xi_k, xv_k), device=device,
-                name=f"make_scan_eval_fn({getattr(self.forward_fn, '__qualname__', '')})"))
+                name=f"make_scan_eval_fn({getattr(self.forward_fn, '__qualname__', '')})",
+                **_collectives(mesh)))
         return graph(xi_k, xv_k).clone()
 
 
-def make_scan_eval_fn(mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None) -> ScanEval:
+def make_scan_eval_fn(mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
+                      mesh: Optional[mesh_mod.Mesh] = None,
+                      axes: Optional[mesh_mod.Axes] = None) -> ScanEval:
     """K eval batches a dispatch over stacked ``(K, B, ...)`` inputs → ``(K, B)``
     logits (the JAX package's ``make_scan_eval_fn``, ``:174-195``); see
     :class:`ScanEval`."""
-    return ScanEval(mcfg, forward_fn)
+    return ScanEval(mcfg, forward_fn, mesh=mesh, axes=axes)
 
 
 class DeepFMEstimator:
@@ -450,6 +493,7 @@ class DeepFMEstimator:
         self._batch_both = False
         self._blocks = False        # params and optimizer state hold this rank's row blocks
         self._scan_eval: Optional[ScanEval] = None   # _predict_logits' groups, made on first use
+        self._fwd: Optional[Tuple[Tuple, ForwardFn]] = None   # _forward_fn's, and what it binds
 
     # ------------------------------------------------------------------ util
 
@@ -557,14 +601,19 @@ class DeepFMEstimator:
 
     def _forward_fn(self) -> ForwardFn:
         """``model_forward`` with, on a mesh, the exchange's lookup bound and
-        a QAT tower's activation abs-max taken over the batch's ranks."""
+        a QAT tower's activation abs-max taken over the batch's ranks. The
+        same function while these stay, so that the scanned eval keeps its
+        graphs."""
         fwd = type(self).model_forward
-        kw: Dict[str, Any] = {}
-        if self._lookup_fn is not None:
-            kw["lookup_fn"] = self._lookup_fn
-        if self.mesh is not None and self.mcfg.quantization_aware:
-            kw["amax_fn"] = self._batch_group().max
-        return partial(fwd, **kw) if kw else fwd
+        key = (fwd, self._lookup_fn, self.mesh, self._batch_axes(), self.mcfg.quantization_aware)
+        if self._fwd is None or self._fwd[0] != key:
+            kw: Dict[str, Any] = {}
+            if self._lookup_fn is not None:
+                kw["lookup_fn"] = self._lookup_fn
+            if self.mesh is not None and self.mcfg.quantization_aware:
+                kw["amax_fn"] = self._batch_group().max
+            self._fwd = (key, partial(fwd, **kw) if kw else fwd)
+        return self._fwd[1]
 
     def _reducer(self) -> Callable[[List[torch.Tensor]], None]:
         """The gradient reduction of this rank's sharded step: each leaf summed
@@ -623,8 +672,11 @@ class DeepFMEstimator:
         logits are stacked into the same groups. On the card a group is one
         CUDA graph replay; a last group of fewer real batches steps them one
         by one, then refreshes. The parameters, the losses and the schedule
-        are those of ``steps_per_call=1``. On a mesh the steps stay per batch
-        (a sharded group would capture collectives: gloo's cannot be)."""
+        are those of ``steps_per_call=1``. On a mesh each rank stacks its
+        rows of the global batches, with their global real-row counts, and a
+        group is one replay on every rank over NCCL, the K steps eager over
+        gloo (its collectives cannot be captured): ``fit``'s mesh line says
+        which."""
         tc = self.tcfg
         do_prune = tc.prune if prune is None else bool(prune)
         prune_kw = dict(
@@ -680,24 +732,29 @@ class DeepFMEstimator:
         generator = torch.Generator(device=self.device).manual_seed(tc.random_seed + 1)
         step_generator: Any = generator
         reduce, group = None, self._batch_group()
+        # K steps a dispatch: K = prune_interval when pruning, so that each group ends
+        # in the refresh the per-batch schedule makes there
+        k_steps = tc.steps_per_call if tc.steps_per_call > 1 else 1
+        fuse_prune = do_prune and k_steps > 1
+        if fuse_prune:
+            k_steps = tc.prune_interval
         if mesh is not None:
             self._shard_state()
+            form = ("" if k_steps == 1 else f", {k_steps} steps a replay" if mesh.capturable
+                    else f", {k_steps} steps eager a group ({mesh.backend} collectives cannot "
+                         f"be captured)")
             self._log(f"mesh: data={mesh.data} model={mesh.model} exchange={self._exchange()} "
-                      f"({mesh.size} ranks, backend {mesh.backend}, rank 0 on {self.device})")
+                      f"({mesh.size} ranks, backend {mesh.backend}, rank 0 on {self.device})"
+                      + form)
             reduce = self._reducer()
             step_generator = BatchShard(generator, tc.batch_size, mesh_mod.batch_rows(
                 mesh, self._batch_axes(), tc.batch_size).start)
             if self._table_shards > 1:
                 prune_kw.update(mesh=mesh, table_axes=self._table_axes,
                                 dense_rows=type(self).model_spec(self.mcfg).dense_rows)
-        # K steps a dispatch (one device): K = prune_interval when pruning, so that
-        # each group ends in the refresh the per-batch schedule makes there
-        k_steps = tc.steps_per_call if mesh is None and tc.steps_per_call > 1 else 1
-        fuse_prune = do_prune and k_steps > 1
-        if fuse_prune:
-            k_steps = tc.prune_interval
         if k_steps > 1:
-            multi_kw = dict(use_kd=teacher_model is not None, forward_fn=forward_fn)
+            multi_kw = dict(use_kd=teacher_model is not None, forward_fn=forward_fn, mesh=mesh,
+                            reduce=reduce, group=group)
             multi_step = make_multi_step(self.mcfg, tc, optimizer, **multi_kw)
             multi_prune = (make_multi_step(self.mcfg, tc, optimizer, prune_kw=prune_kw, **multi_kw)
                            if fuse_prune else None)
@@ -731,9 +788,10 @@ class DeepFMEstimator:
                         n_iter += k_real
                     step = multi_prune if prune_now else multi_step
                     losses = step(self.params, self.opt_state, stacked["xi"], stacked["xv"],
-                                  stacked["y"], stacked["mask"], generator, stacked.get("teacher"),
+                                  stacked["y"], stacked["mask"], step_generator,
+                                  stacked.get("teacher"),
                                   tc.adaptive_sparse(n_iter) if prune_now else None,
-                                  k_real=k_real)[:k_real]
+                                  k_real=k_real, count_k=stacked.get("count"))[:k_real]
                     epoch_losses.append(losses)
                     if debug.finite_checks_enabled():
                         debug.require_finite(losses, f"the losses of steps {self._step} on")
@@ -819,35 +877,33 @@ class DeepFMEstimator:
     def _predict_logits(self, Xi: np.ndarray, Xv: np.ndarray,
                         batch_size: Optional[int] = None) -> np.ndarray:
         """Batched eval-mode forward with a padded tail → logits on the host.
-        Every batch is issued before the one copy back. On one device the
-        full groups of ``EVAL_SCAN_K`` batches go through the scanned eval
-        (one CUDA graph replay each on the card), the rest batch by batch, as
-        the JAX package's (``:706-726``). On a mesh the batch is rounded up to
-        the shard count, each rank runs its rows, and the logits are
-        gathered, so every rank returns them all."""
+        Every batch is issued before the one copy back. The full groups of
+        ``EVAL_SCAN_K`` batches go through the scanned eval (one CUDA graph
+        replay each on the card, over NCCL on a mesh), the rest batch by
+        batch, as the JAX package's (``:696-726``). On a mesh the batch is
+        rounded up to the shard count, each rank runs its rows, and the
+        logits are gathered, so every rank returns them all."""
         bs = batch_size or (self.tcfg.eval_batch_size * (2 if self.mcfg.use_ffm else 1))
         n_shards = self._n_batch_shards()
         bs = -(-bs // n_shards) * n_shards
         Xi = np.asarray(Xi, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
         Xv = np.asarray(Xv, dtype=np.float32).reshape(Xi.shape[0], -1)
         forward_fn = self._forward_fn()
-        out = []
-        pos = 0
-        if self.mesh is None:
-            k = EVAL_SCAN_K
-            pos = Xi.shape[0] // (k * bs) * (k * bs)
-            if self._scan_eval is None or self._scan_eval.forward_fn is not forward_fn:
-                self._scan_eval = make_scan_eval_fn(self.mcfg, forward_fn)
-            groups = ({"xi": Xi[lo:lo + k * bs].reshape(k, bs, -1),
-                       "xv": Xv[lo:lo + k * bs].reshape(k, bs, -1)}
-                      for lo in range(0, pos, k * bs))
-            for group in batching.prefetch_to_device(groups, self.device):
-                out.append(self._scan_eval(self.params, group["xi"], group["xv"]).reshape(-1))
+        axes = self._batch_axes()
+        rows = slice(None) if self.mesh is None else mesh_mod.batch_rows(self.mesh, axes, bs)
+        k = EVAL_SCAN_K
+        pos = Xi.shape[0] // (k * bs) * (k * bs)
+        if self._scan_eval is None or self._scan_eval.forward_fn is not forward_fn:
+            self._scan_eval = make_scan_eval_fn(self.mcfg, forward_fn, mesh=self.mesh, axes=axes)
+        groups = ({"xi": Xi[lo:lo + k * bs].reshape(k, bs, -1)[:, rows],
+                   "xv": Xv[lo:lo + k * bs].reshape(k, bs, -1)[:, rows]}
+                  for lo in range(0, pos, k * bs))
+        out = [self._scan_eval(self.params, group["xi"], group["xv"]).reshape(-1)
+               for group in batching.prefetch_to_device(groups, self.device)]
         Xi, Xv = Xi[pos:], Xv[pos:]
         dummy_y = np.zeros(Xi.shape[0], dtype=np.float32)
         batches = batching.iter_batches(Xi, Xv, dummy_y, bs)
         if self.mesh is not None:
-            axes = self._batch_axes()
             batches = (mesh_mod.shard_batch(b, self.mesh, axes, bs) for b in batches)
         for batch in batching.prefetch_to_device(batches, self.device):
             logits = forward_fn(self.params, batch["xi"], batch["xv"], self.mcfg)

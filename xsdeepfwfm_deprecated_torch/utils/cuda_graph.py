@@ -16,11 +16,21 @@ each input shape and then replayed, one launch for all of its kernels.
   autograd's engine). A function that changes state (a train step) passes its
   own ``warmup``, which runs on clones;
 * the ``torch.Generator`` s the function draws from are registered with the
-  graph, so that each replay draws the numbers that eager calls would have
-  drawn next from them;
-* the launch counts of the port's kernels (:data:`KERNELS`): the warm-up and
-  the capture are set-up, like a compile, and leave the counts as they found
-  them; each replay adds the launches that the capture recorded.
+  graph (a :class:`..ops.mlp.BatchShard` through the generator it wraps), so
+  that each replay draws the numbers that eager calls would have drawn next
+  from them;
+* what the function counts (:class:`Counter`): the launches of the port's
+  kernels (:data:`KERNELS`) and, on a mesh, the collectives of
+  ``Mesh.traffic``. The warm-up and the capture are set-up, like a compile,
+  and leave every counter as they found it; each replay adds what the
+  capture recorded.
+
+A graph may hold ``torch.distributed`` collectives where the backend can
+capture them (NCCL; not gloo, whose collectives go through the host): the
+warm-up runs each of them once eagerly on every rank, which makes NCCL's
+communicators, and ``barrier`` waits for every rank before the capture. The
+capture is ``thread_local``: NCCL's watchdog thread queries its events while
+it runs, which would end a ``global`` capture.
 
 A failure to capture raises, naming the function. Nothing gives way to eager
 calls on the card. On the CPU nothing is captured: the callers run their
@@ -29,23 +39,74 @@ functions eagerly there.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
+from dataclasses import replace
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import _tree
 from ..ops.cuda.int8_mlp import int8_mlp
+from ..ops.mlp import BatchShard
 
 KERNELS = (int8_mlp,)    # the wrappers of csrc/, each counting its launches
 
 
-def launch_counts() -> Tuple[int, ...]:
-    return tuple(k.launches for k in KERNELS)
+class Counter:
+    """What a graphed function counts, seen as a mark now, what was added
+    since a mark, a return to a mark, and adding again what was added."""
+
+    def mark(self) -> Any:
+        raise NotImplementedError
+
+    def since(self, mark: Any) -> Any:
+        raise NotImplementedError
+
+    def reset(self, mark: Any) -> None:
+        raise NotImplementedError
+
+    def add(self, added: Any) -> None:
+        raise NotImplementedError
 
 
-def _set_launch_counts(counts: Tuple[int, ...]) -> None:
-    for kernel, n in zip(KERNELS, counts):
-        kernel.launches = n
+class Launches(Counter):
+    """A kernel wrapper's ``launches``."""
+
+    def __init__(self, kernel: Any):
+        self.kernel = kernel
+
+    def mark(self) -> int:
+        return self.kernel.launches
+
+    def since(self, mark: int) -> int:
+        return self.kernel.launches - mark
+
+    def reset(self, mark: int) -> None:
+        self.kernel.launches = mark
+
+    def add(self, added: int) -> None:
+        self.kernel.launches += added
+
+
+class Log(Counter):
+    """A list that is only appended to, such as ``Mesh.traffic``."""
+
+    def __init__(self, entries: list):
+        self.entries = entries
+
+    def mark(self) -> int:
+        return len(self.entries)
+
+    def since(self, mark: int) -> list:
+        return list(self.entries[mark:])
+
+    def reset(self, mark: int) -> None:
+        del self.entries[mark:]
+
+    def add(self, added: list) -> None:
+        self.entries.extend(added)
+
+
+COUNTERS: Tuple[Counter, ...] = tuple(Launches(k) for k in KERNELS)
 
 
 def state_key(*trees: Any) -> Tuple:
@@ -59,7 +120,10 @@ def state_key(*trees: Any) -> Tuple:
 class Graphs:
     """The graphs of one caller: one for each input shape, as ``jax.jit``
     keeps one executable for each, captured again when the state it reads
-    (:func:`state_key`) has moved, which frees the old capture's memory."""
+    (:func:`state_key`) has moved, which frees the old capture's memory. A
+    held graph keeps the state it was captured on alive, so state that was
+    replaced has moved on every rank of a mesh alike, and the ranks capture
+    (with their collectives) together."""
 
     def __init__(self):
         self._held: Dict[Hashable, Tuple[Tuple, "Graphed"]] = {}
@@ -75,14 +139,23 @@ class Graphs:
         return held[1]
 
 
-def clone_generator(gen: Optional[torch.Generator]) -> Optional[torch.Generator]:
+Generator = Union[torch.Generator, BatchShard]
+
+
+def clone_generator(gen: Optional[Generator]) -> Optional[Generator]:
     """A generator on ``gen``'s device in ``gen``'s state, for a warm-up that
-    must not advance ``gen``."""
+    must not advance ``gen`` (a ``BatchShard`` around a clone of its own)."""
     if gen is None:
         return None
+    if isinstance(gen, BatchShard):
+        return replace(gen, generator=clone_generator(gen.generator))
     out = torch.Generator(device=gen.device)
     out.set_state(gen.get_state())
     return out
+
+
+def _torch_generator(gen: Generator) -> torch.Generator:
+    return gen.generator if isinstance(gen, BatchShard) else gen
 
 
 class Graphed:
@@ -91,14 +164,20 @@ class Graphed:
     ``inputs`` are the first call's tensors (on any device): they fill the
     static buffers, and the warm-up runs on them. ``warmup(*static_inputs)``
     replaces the warm-up call of ``fn`` where ``fn`` changes state.
-    ``outputs`` is what ``fn`` returned during capture."""
+    ``counters`` are what ``fn`` counts besides the kernels' launches;
+    ``barrier`` runs between the warm-up and the capture (a mesh's, where
+    ``fn`` holds collectives). ``outputs`` is what ``fn`` returned during
+    capture, ``captured`` what each counter recorded."""
 
     def __init__(self, fn: Callable[..., Any], inputs: Sequence[torch.Tensor], *,
                  device: torch.device, name: str,
                  warmup: Optional[Callable[..., Any]] = None,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[Generator] = (),
+                 counters: Sequence[Counter] = (),
+                 barrier: Optional[Callable[[], None]] = None):
         self.name = name
-        before = launch_counts()
+        self.counters: List[Counter] = list(COUNTERS) + list(counters)
+        before = [c.mark() for c in self.counters]
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in inputs]
         for buf, t in zip(self.inputs, inputs):
             buf.copy_(t)
@@ -108,23 +187,27 @@ class Graphed:
             with torch.cuda.stream(stream):
                 (warmup or fn)(*self.inputs)
             torch.cuda.current_stream(device).wait_stream(stream)
+            if barrier is not None:
+                torch.cuda.synchronize(device)
+                barrier()
             self.graph = torch.cuda.CUDAGraph()
             for gen in generators:
-                self.graph.register_generator_state(gen)
-            start = launch_counts()
-            with torch.cuda.graph(self.graph, stream=stream):
+                self.graph.register_generator_state(_torch_generator(gen))
+            start = [c.mark() for c in self.counters]
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.outputs = fn(*self.inputs)
-            self.launches = tuple(b - a for a, b in zip(start, launch_counts()))
+            self.captured = tuple(c.since(m) for c, m in zip(self.counters, start))
         except RuntimeError as err:
             raise RuntimeError(f"{name} cannot be captured into a CUDA graph: {err}") from err
         finally:
-            _set_launch_counts(before)
+            for c, m in zip(self.counters, before):
+                c.reset(m)
 
     def replay(self) -> Any:
         """Replay on the inputs already in the static buffers."""
         self.graph.replay()
-        for kernel, n in zip(KERNELS, self.launches):
-            kernel.launches += n
+        for c, added in zip(self.counters, self.captured):
+            c.add(added)
         return self.outputs
 
     def __call__(self, *inputs: torch.Tensor) -> Any:
