@@ -95,8 +95,16 @@ Phases, each printed on its own line:
      within STEP_TOL (beside it the spread of two eager fits with the card's atomic
      scatter-add); ms a train step in both forms; the pipeline leg at 1M rows with
      --k-steps 8 against --k-steps 1.
+ 21. the compiled timers: run_benchmark on the flagship in fp32 and dynamic int8 at B=8192
+     and tools.pruned_serving_bench at B=8192 and B=1 (7 arms), every timer through CUDA
+     graph replays (marginal_timeit, scan_timeit and the Predictor's replay): inside each
+     timed window only replays, no eager forward and no torch function called; each
+     captured forward's logits equal Predictor.logits on its batch within 1e-6; in int8 the
+     fused tower launched inside the timers' graphs once a forward and equal to its plain
+     version; each reading beside the reading of the eager timers for the same call,
+     and the arms' ranking under both.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17, 18, 19, 20 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17, 18, 19, 20, 21 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -110,7 +118,9 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import functools
 import json
 import logging
 import statistics
@@ -120,12 +130,14 @@ import time
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and int8 tensor-core ops/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
-PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20))
+PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
+                (21, 21))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
@@ -2416,6 +2428,294 @@ def dispatch_phase(args, cfg, card: str) -> dict:
     return {"launches_dispatch_path": graph_launches}
 
 
+TIMER_ROWS = 4 * BATCH    # phase 21's rows through run_benchmark: four quality batches
+TIMER_SINGLE = 100        # phase 21's n_single: B=1 calls of each single-example timer
+TIMER_KEYS = ("batch_ms", "batch_onchip_ms", "examples_per_s", "single_example_ms",
+              "single_example_onchip_ms")
+
+
+class _TorchCalls(TorchFunctionMode):
+    """Counts the torch functions called from Python: a forward run eagerly
+    calls dozens, a graph replay none."""
+
+    def __init__(self, calls: collections.Counter):
+        super().__init__()
+        self.calls = calls
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.calls[getattr(func, "__name__", repr(func))] += 1
+        return func(*args, **(kwargs or {}))
+
+
+class TimerSpy:
+    """What the port's timers do inside their timed windows, for phase 21.
+
+    A window is a run of ``profiling.timed`` (the graphed ``marginal_timeit``
+    and ``scan_timeit``), in which every torch function called from Python
+    is counted, or a call of ``simple_timeit`` (``run_benchmark``'s host-clock
+    timers of ``Predictor.replay``), where nothing is added to the host's
+    work but counters. In each: the graph replays, the forwards of a
+    :meth:`counted` function run eagerly (outside a capture), and the fused
+    tower's launches. :meth:`counted` also keeps the static inputs and output
+    of each forward it sees captured, and each timer graph replayed in a
+    window is noted once with its captured tower launches."""
+
+    def __init__(self, int8_mlp):
+        self.int8_mlp = int8_mlp
+        self.windows = self.empty_windows = self.replays = self.eager = 0
+        self.eager_in_windows = self.launches = 0
+        self.torch_calls = collections.Counter()
+        self.captured = []      # (xi, xv, logits) of each captured forward of a counted function
+        self.graphs = []        # (name, batch, captured tower launches, forwards) of timer graphs
+
+    def counted(self, fn):
+        @functools.wraps(fn)
+        def forward(model, xi, xv):
+            out = fn(model, xi, xv)
+            if torch.cuda.is_current_stream_capturing():
+                self.captured.append((xi, xv, out))
+            else:
+                self.eager += 1
+            return out
+        return forward
+
+    def window(self, run, torch_calls: bool):
+        replays, eager, launches = self.replays, self.eager, self.int8_mlp.launches
+        with _TorchCalls(self.torch_calls) if torch_calls else contextlib.nullcontext():
+            out = run()
+        self.windows += 1
+        self.empty_windows += self.replays == replays
+        self.eager_in_windows += self.eager - eager
+        self.launches += self.int8_mlp.launches - launches
+        return out
+
+    @contextlib.contextmanager
+    def spying(self, profiling, cuda_graph):
+        """``profiling.timed`` runs its work as a window; ``Graphed.replay``
+        counts itself and notes each timer graph."""
+        timed, replay = profiling.timed, cuda_graph.Graphed.replay
+
+        def spied_timed(run, cuda):
+            return timed(lambda: self.window(run, True), cuda)
+
+        def spied_replay(graph):
+            self.replays += 1
+            if graph.name.startswith(("marginal_timeit", "scan_timeit")) and \
+                    not getattr(graph, "_noted", False):
+                graph._noted = True
+                self.graphs.append((graph.name, graph.outputs[0].shape[0], graph.captured[0],
+                                    len(graph.outputs)))
+            return replay(graph)
+        profiling.timed, cuda_graph.Graphed.replay = spied_timed, spied_replay
+        try:
+            yield self
+        finally:
+            profiling.timed, cuda_graph.Graphed.replay = timed, replay
+
+
+def eager_marginal(fn, model, inputs, *, k1: int = 1, k2: int = 16, reps: int = 7) -> float:
+    """The eager ``marginal_timeit`` the port had before its graphs: the ``k2`` forwards
+    issued eagerly between two CUDA events, the least of ``reps``, over ``k2``."""
+    def run():
+        for a in inputs[:k2]:
+            fn(model, *a)
+    run()
+    return min(events_s(run) for _ in range(reps)) / k2
+
+
+def eager_scan(fn, model, xi, xv, *, iters: int = 100, reps: int = 3,
+               warmup: bool = True) -> float:
+    """The eager ``scan_timeit`` the port had before its graphs: ``iters`` eager forwards
+    between two CUDA events, the median of ``reps``, over ``iters``."""
+    def run():
+        for _ in range(iters):
+            fn(model, xi, xv)
+    if warmup:
+        fn(model, xi, xv)
+    return statistics.median(events_s(run) for _ in range(reps)) / iters
+
+
+def events_s(run) -> float:
+    """Seconds ``run`` takes on the device, between two CUDA events (for the
+    eager readings: ``profiling.timed`` is the graphed timers' window, which
+    :class:`TimerSpy` watches)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+@contextlib.contextmanager
+def beside_eager(module, spy: TimerSpy, Predictor, int8_mlp, eager: list):
+    """``module``'s timers (``serving.benchmark``'s or
+    ``tools.pruned_serving_bench``'s) each time the compiled forward, as the
+    port does, and then the same call as the eager timers timed it (eager
+    forwards; ``Predictor.replay`` as ``_fn``), whose reading is appended to
+    ``eager`` as ``(timer, graphed, eager)``. The eager readings' tower
+    launches are a yardstick's and are taken back out of the count."""
+    real = {name: getattr(module, name) for name in ("marginal_timeit", "scan_timeit",
+                                                     "simple_timeit") if hasattr(module, name)}
+    pr10 = {"marginal_timeit": eager_marginal, "scan_timeit": eager_scan}
+    replay = Predictor.replay
+
+    def eager_replay(self, xi, xv):
+        return self._fn(self._model, xi, xv)
+
+    def both(name):
+        def timer(fn, *args, **kw):
+            if name == "simple_timeit":
+                calls = []
+
+                def counted_call(*a):
+                    calls.append(1)
+                    return fn(*a)
+                replays = spy.replays
+                graphed = spy.window(lambda: real[name](counted_call, *args, **kw), False)
+                check(spy.replays - replays == len(calls),
+                      f"simple_timeit: {spy.replays - replays} replays for {len(calls)} calls")
+            else:
+                graphed = real[name](fn, *args, **kw)
+            launches = int8_mlp.launches
+            if name == "simple_timeit":
+                Predictor.replay = eager_replay
+                try:
+                    reading = real[name](fn, *args, **kw)
+                finally:
+                    Predictor.replay = replay
+            else:
+                reading = pr10[name](fn, *args, **kw)
+            int8_mlp.launches = launches
+            eager.append((name, graphed, reading))
+            return graphed
+        return timer
+    for name in real:
+        setattr(module, name, both(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
+def timers_phase(args, cfg, card: str) -> dict:
+    """Phase 21: the port's timers time the compiled forward, as the JAX
+    timers time the jitted one. ``run_benchmark`` in fp32 and dynamic int8 at
+    B=8192 and ``tools.pruned_serving_bench`` at B=8192 and B=1 on the
+    full-width flagship, each timer's reading beside the eager reading that
+    the eager timers give for the same call. Returns the fused tower's
+    launches on this path."""
+    import io
+
+    from xsdeepfwfm_deprecated_torch.compression.quantization import convert
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+    from xsdeepfwfm_deprecated_torch.serving import benchmark
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    from xsdeepfwfm_deprecated_torch.tools import pruned_serving_bench
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph, profiling
+
+    where = f"[{card}]"
+    t_phase = time.perf_counter()
+    quiet = logging.getLogger("chip_smoke.timers")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    params_cpu = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg, device="cpu")
+    xi, xv, y = make_training_rows(cfg, args.seed + 40, TIMER_ROWS)
+    qm_cpu = convert(params_cpu, cfg, "dynamic")
+    spy = TimerSpy(int8_mlp)
+    lines = []
+
+    # the main path of this phase: run_benchmark in fp32 and int8, then the pruned-serving arms
+    int8_mlp.launches = 0
+    for name, model in (("fp32", params_cpu), ("int8", qm_cpu)):
+        pred = Predictor(model, cfg)
+        pred._fn = spy.counted(pred._fn)
+        eager, graphs = [], len(spy.graphs)
+        windows, launches = spy.windows, spy.launches
+        with spy.spying(profiling, cuda_graph), \
+                beside_eager(benchmark, spy, Predictor, int8_mlp, eager):
+            res = benchmark.run_benchmark(pred, xi, xv, y, batch_size=BATCH, logger=quiet,
+                                          n_single=TIMER_SINGLE)
+        check(all(np.isfinite(res[k]) and res[k] > 0 for k in TIMER_KEYS),
+              f"{name}: run_benchmark's times {[res[k] for k in TIMER_KEYS]}")
+        # every captured forward's logits against Predictor.logits on its batch
+        far = 0.0
+        for a, b, out in spy.captured:
+            want = pred.logits(a.cpu().numpy(), b.cpu().numpy())
+            far = max(far, float(np.abs(out.cpu().numpy() - want).max()))
+        n_captured = len(spy.captured)
+        spy.captured.clear()
+        check(n_captured > 0 and far <= GRAPH_TOL,
+              f"{name}: {n_captured} captured forwards differ from Predictor.logits by {far}")
+        timer_graphs = spy.graphs[graphs:]
+        fused = [g for g in timer_graphs if g[2]]
+        if name == "int8":
+            check(fused and all(g[1] % 512 == 0 and g[2] == g[3] for g in fused)
+                  and all(g[1] % 512 for g in timer_graphs if not g[2]),
+                  f"int8 timer graphs (name, batch, tower launches, forwards): {timer_graphs}")
+            check(spy.launches - launches > 0, "no tower launch inside the int8 timers' windows")
+            qm = pred._model
+        else:
+            check(not fused, f"fp32 timer graphs launched the tower: {fused}")
+        # the repaired keys, graphed beside the eager timers' reading of the same call
+        by_graphed = {g * 1e3: e * 1e3 for timer, g, e in eager}
+        reads = {k: (v, by_graphed[v]) for k, v in res.items()
+                 if k in TIMER_KEYS[:2] + TIMER_KEYS[3:] or k.startswith("component_ms/")}
+        t_chip = [e for timer, g, e in eager if timer == "marginal_timeit"][-1]
+        reads["examples_per_s"] = (res["examples_per_s"], BATCH / t_chip)
+        lines.append(f"  run_benchmark {name} at B={BATCH}, n_single {TIMER_SINGLE}: "
+                     f"{spy.windows - windows} timed windows, {len(timer_graphs)} timer graphs "
+                     f"({len(fused)} with the tower inside, once a forward), {n_captured} "
+                     f"captured forwards vs Predictor.logits max |diff| {far:.1e}")
+        for k, (g, e) in reads.items():
+            lines.append(f"    {k}: graphed {g:.4f} | eager {e:.4f}")
+        del pred
+
+    eager = []
+    out, err = io.StringIO(), io.StringIO()
+    with spy.spying(profiling, cuda_graph), \
+            beside_eager(pruned_serving_bench, spy, Predictor, int8_mlp, eager), \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        graphs = len(spy.graphs)
+        rows = pruned_serving_bench.main([])
+    check(len(rows) == len(eager) == 14 and all(np.isfinite(r["us_per_batch"])
+                                                and r["us_per_batch"] > 0 for r in rows),
+          f"pruned_serving_bench: {len(rows)} rows, {len(eager)} eager readings")
+    fused = [g for g in spy.graphs[graphs:] if g[2]]
+    check(len(fused) == 2 and all(g[1] == BATCH and g[2] == g[3] for g in fused),
+          f"pruned_serving_bench: tower graphs {fused} (the int8 arm's two at B={BATCH})")
+    path_launches = int8_mlp.launches
+    tower_err = fused_tower_err(qm, cfg, xi[:BATCH], xv[:BATCH])
+    check(spy.windows > 0 and spy.empty_windows == 0 and spy.eager_in_windows == 0
+          and not spy.torch_calls,
+          f"timed windows {spy.windows}: {spy.empty_windows} without a replay, "
+          f"{spy.eager_in_windows} eager forwards, torch calls {dict(spy.torch_calls)}")
+    check(tower_err <= TOL, f"int8_mlp vs its plain version: max |diff| {tower_err}")
+    for r, (_, _, e) in zip(rows, eager):
+        r["eager_us"] = e * 1e6
+    for b in sorted({r["batch"] for r in rows}, reverse=True):
+        at_b = [r for r in rows if r["batch"] == b]
+        for r in at_b:
+            lines.append(f"  pruned_serving_bench B={b} {r['arm']}: graphed "
+                         f"{r['us_per_batch']:.1f} us | eager {r['eager_us']:.1f} us")
+        for form, key in (("graphed", "us_per_batch"), ("eager", "eager_us")):
+            order = " < ".join(r["arm"] for r in sorted(at_b, key=lambda r: r[key]))
+            lines.append(f"  B={b} ranking, {form}: {order}")
+
+    phase(21, f"compiled timers: every timed window replays CUDA graphs ({spy.windows} windows, "
+              f"{spy.replays} replays, no eager forward and no torch call inside), "
+              f"{time.perf_counter() - t_phase:.1f} s {where}")
+    for line in lines:
+        print(line + f" {where}")
+    print(f"  fused tower: {spy.launches} launches inside the timers' windows, {path_launches} "
+          f"on the phase's path; int8_mlp vs plain version on these weights max |diff| "
+          f"{tower_err:.1e}")
+    return {"launches_timers_path": path_launches, "max_abs_err_timers": tower_err}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -2643,7 +2943,7 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20), without the result lines")
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21), without the result lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
                          "the fused tower's launches and its max |diff| against the plain "
@@ -2698,8 +2998,9 @@ def main(argv=None) -> int:
         for first, run in ((18, scale_phase), (19, pipeline_phase)):
             if first in groups:
                 run(card)
-        if 20 in groups:
-            dispatch_phase(args, cfg, card)
+        for first, run in ((20, dispatch_phase), (21, timers_phase)):
+            if first in groups:
+                run(args, cfg, card)
         print(card)
         return 0
     if args.parity:
@@ -2728,12 +3029,16 @@ def main(argv=None) -> int:
     # ---- 20. the compiled dispatch, graphed against eager
     dispatched = dispatch_phase(args, cfg, card)
 
+    # ---- 21. the compiled timers, beside the eager readings
+    timed_path = timers_phase(args, cfg, card)
+
     # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
-        **served, **trained, **deployed, **sharded, **scaled, **piped, **dispatched}]
+        **served, **trained, **deployed, **sharded, **scaled, **piped, **dispatched,
+        **timed_path}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -141,7 +141,9 @@ def test_card_epoch_trains_on_exactly_the_pipelines_batches(tmp_path, monkeypatc
 
     assert CARD_KEYS <= set(res) and res["card_steps"] == 4 and res["h2d_gb_per_s"] is None
     assert res["card_device"] == "cpu"
-    assert res["host_is_bottleneck"] == (res["card_wall_s"] > 1.15 * res["card_step_budget_s"])
+    # the criterion on the ratio the tool reports to 3 decimals: the wall and the budget are
+    # reported to 0.1 s, too coarse for it on the CPU's sub-second epochs
+    assert res["host_is_bottleneck"] == (res["wall_over_budget"] > 1.15)
     want = list(itertools.islice(ShardedBinPipeline(d).epoch_batches(64, seed=4, epoch=0), 4))
     # the epoch, the budget on its last batch, then the staged budget over its batches in order
     staged = [want[i % len(want)] for i in range(hp.BUDGET_REPS)]

@@ -12,13 +12,17 @@ surface of the reference's ``run_benchmark`` (``model/DeepFMs.py:947-1009``):
 4. single-example latency (batch=1) over 1000 samples → mean ms.
 
 The result dict has the JAX package's keys and the log lines its text.
-``batch_ms`` and ``single_example_ms`` are the host clock with a device sync
-per call; ``batch_onchip_ms`` and ``single_example_onchip_ms`` are CUDA-event
-times (:mod:`..utils.profiling`). In place of XLA's cost analysis,
-``flops_per_batch`` comes from ``torch.utils.flop_counter`` (matrix products
-of the eager forward; a hand-written kernel's are not counted) and
-``bytes_accessed_per_batch`` is left out. The lookup row times the flat
-serving lookup, the port's one layout.
+Every time is of the compiled forward, as JAX's are of its jitted one; on the
+card that is a CUDA graph. ``batch_ms`` and ``single_example_ms`` are the host
+clock, with a device sync per call, of :meth:`Predictor.replay` (a copy into
+the shape's graph and one replay) on batches already on the device;
+``batch_onchip_ms``, ``single_example_onchip_ms`` and the op-level rows are
+CUDA-event times of graphs of several forwards (:mod:`..utils.profiling`).
+In place of XLA's cost analysis, ``flops_per_batch`` comes from
+``torch.utils.flop_counter`` (matrix products of the eager forward; a
+hand-written kernel's are not counted) and ``bytes_accessed_per_batch`` is
+left out. The lookup row times the flat serving lookup, the port's one
+layout.
 """
 
 from __future__ import annotations
@@ -71,7 +75,8 @@ def op_summary(predictor: Predictor, bxi: np.ndarray, bxv: np.ndarray,
     * the matrix-product FLOPs of one forward (``FlopCounterMode``);
     * the device time of the forward's named components (the reference's
       ``record_function`` spans: lookup / interaction / deep tower), each run
-      alone over distinct inputs and timed with CUDA events.
+      alone over distinct inputs by ``marginal_timeit`` (CUDA graphs on the
+      card).
     """
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -184,10 +189,11 @@ def run_benchmark(predictor: Predictor, Xi, Xv, y, *, batch_size: int = 8192,
     results.update(op_summary(predictor, bxi, bxv, log=log))
 
     # 3. batched forward timing (reference :982-997). Two numbers: the host
-    # clock with a sync per call (what a caller of the forward sees) and the
-    # device's time over k2 distinct batches. The tensors are moved to the
-    # device once, outside the timed calls: the reference's time_forward_pass
-    # also times only the forward, after tensor construction (:1012-1028).
+    # clock with a sync per call of the Predictor's replay (what a caller of
+    # the compiled forward sees) and the device's marginal time of one more
+    # of k2 distinct batches. The tensors are moved to the device once,
+    # outside the timed calls: the reference's time_forward_pass also times
+    # only the forward, after tensor construction (:1012-1028).
     k2 = 8
     binputs = []
     for i in range(k2):
@@ -195,7 +201,7 @@ def run_benchmark(predictor: Predictor, Xi, Xv, y, *, batch_size: int = 8192,
         binputs.append((torch.from_numpy(Xi[sl] if n >= batch_size else bxi).to(dev),
                         torch.from_numpy(Xv[sl] if n >= batch_size else bxv).to(dev)))
     bxi_d, bxv_d = binputs[0]
-    t_batch = simple_timeit(lambda: predictor._fn(predictor._model, bxi_d, bxv_d), tries=20)
+    t_batch = simple_timeit(lambda: predictor.replay(bxi_d, bxv_d), tries=20)
     t_chip = marginal_timeit(predictor._fn, predictor._model, binputs, k2=k2, reps=5)
     results["batch_ms"] = t_batch * 1e3
     results["batch_onchip_ms"] = t_chip * 1e3
@@ -207,11 +213,11 @@ def run_benchmark(predictor: Predictor, Xi, Xv, y, *, batch_size: int = 8192,
     log("\tThroughput (examples/s, on-chip):\t{:.0f}".format(results["examples_per_s"]))
     log("\tThroughput (examples/s/chip):\t{:.0f}".format(results["examples_per_s_per_chip"]))
 
-    # 4. single-example latency (reference :999-1009): host clock and device
-    # time of back-to-back forwards of one example
+    # 4. single-example latency (reference :999-1009): host clock of the
+    # Predictor's replay and device time of back-to-back forwards of one example
     xi1 = torch.from_numpy(Xi[:1]).to(dev)
     xv1 = torch.from_numpy(Xv[:1]).to(dev)
-    t_single = simple_timeit(lambda: predictor._fn(predictor._model, xi1, xv1),
+    t_single = simple_timeit(lambda: predictor.replay(xi1, xv1),
                              tries=min(n_single, 1000), warmup=3)
     t1_chip = scan_timeit(predictor._fn, predictor._model, xi1, xv1,
                           iters=min(n_single, 1000), reps=3)

@@ -6,7 +6,9 @@ moves to the device once, at construction. On the card each batch shape is
 captured into a CUDA graph on its first request (or by :meth:`Predictor.warmup`),
 as the JAX package traces one executable for each shape with ``jax.jit``;
 every request is then a copy into the graph's input buffers, one replay and
-one copy of the logits back. On the CPU the forward runs eagerly.
+one copy of the logits back (:meth:`Predictor.replay` is the same without the
+host copies, on tensors already on the device). On the CPU the forward runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -77,16 +79,24 @@ class Predictor:
         self._graphs = cuda_graph.Graphs()
 
     @torch.inference_mode()
-    def logits(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
-        xi = torch.from_numpy(np.ascontiguousarray(xi, np.int32))
-        xv = torch.from_numpy(np.ascontiguousarray(xv, np.float32))
+    def replay(self, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        """The logits of a batch as a tensor on the device. On the card the
+        batch is copied into the static buffers of its shape's CUDA graph
+        (captured on the shape's first request), the graph is replayed and
+        its output tensor is returned: the next request of that shape
+        overwrites it. On the CPU the eager forward."""
         if self.device.type != "cuda":
-            return self._fn(self._model, xi.to(self.device), xv.to(self.device)).numpy()
+            return self._fn(self._model, xi, xv)
         shapes = (tuple(xi.shape), tuple(xv.shape))
         graph = self._graphs.get(shapes, (), lambda: cuda_graph.Graphed(
             lambda a, b: self._fn(self._model, a, b), (xi, xv), device=self.device,
             name=f"the Predictor's forward of a {type(self._model).__name__} at {shapes}"))
-        return graph(xi, xv).cpu().numpy()
+        return graph(xi, xv)
+
+    def logits(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
+        xi = torch.from_numpy(np.ascontiguousarray(xi, np.int32))
+        xv = torch.from_numpy(np.ascontiguousarray(xv, np.float32))
+        return self.replay(xi, xv).cpu().numpy()
 
     def predict_proba(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
         return 1.0 / (1.0 + np.exp(-self.logits(xi, xv).astype(np.float64)))

@@ -9,9 +9,10 @@ cache of :mod:`.synthetic_scale_run` (1M rows at full-Criteo dims):
 2. student A = a 400x2 tower trained alone;
 3. student B = the same architecture and init trained with the DeepLight KD
    loss (alpha 0.9, T 20, the teacher's logits computed each epoch);
-4. serving time of teacher and student at B=8192: 16 distinct full batches
-   (modulo windows of the test slice) between CUDA events, the least of 5
-   runs (``utils.profiling.marginal_timeit``).
+4. serving time of teacher and student at B=8192: the device time of one
+   more forward of the compiled form, over 16 distinct full batches (modulo
+   windows of the test slice) in one CUDA graph against 1 in another, 5
+   replays each (``utils.profiling.marginal_timeit``).
 
 Done when student+KD >= student alone and within 0.005 of the teacher.
 ``--cpu`` runs on the CPU (``main(argv, device="cpu")``).

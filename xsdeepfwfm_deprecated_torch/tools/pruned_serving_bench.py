@@ -17,9 +17,11 @@ from structural compaction (:mod:`..serving.compaction`), not CSR:
   kernel on the card at B=8192); ``int8-structured-compact`` and
   ``int8-structured-tower-only`` on top of structured compaction.
 
-Every arm is served by the :class:`Predictor`. Times are device times:
-``marginal_timeit`` over 16 distinct seeded batches at B=8192, ``scan_timeit``
-of 200 back-to-back calls at B=1 (single-request latency is serial).
+Every arm is served by the :class:`Predictor`. Times are device times of
+the arm's forward captured into CUDA graphs, as the script's are of its jitted
+forward: ``marginal_timeit`` over 16 distinct seeded batches at B=8192,
+``scan_timeit`` of 200 back-to-back calls at B=1 (single-request latency is
+serial).
 
 ``--checkpoint`` loads trained pruned params (``synthetic_scale_run --save``'s
 ``<save>_deeplight``) instead of pruning the random init; ``--zero-rows``

@@ -8,11 +8,12 @@ the 1M-row full-Criteo-dims cache of :mod:`.synthetic_scale_run`:
 
 * the valid-AUC trajectory and the best test AUC;
 * the embedding tables' bytes (the 3x-parameters claim);
-* ms per train step at B=2048: the port's per-batch ``train_step`` on 16
-  distinct seeded batches between CUDA events, the median of 5 runs. The
-  script times a 16-step ``lax.scan`` over super-row-packed parameters, a TPU
-  layout the port does not have; the port's step updates the same
-  parameters;
+* ms per train step at B=2048: one 16-step ``make_multi_step`` dispatch
+  over 16 distinct seeded batches (a CUDA graph replay on the card) between
+  CUDA events, the median of 5, over 16, as the script times its 16-step
+  ``lax.scan``. The script's scan runs over super-row-packed parameters, a
+  TPU layout the port does not have; the port's steps update the same
+  parameters in the flat table;
 * serving throughput at B=8192 (``kd_scale_run.serving_ms``'s protocol).
 
 ``--cpu`` runs on the CPU (``main(argv, device="cpu")``).
@@ -34,10 +35,9 @@ import torch
 
 from .. import _tree
 from ..config import ModelConfig, TrainConfig
-from ..data import batching
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
-from ..train.trainer import DeepFMEstimator, make_optimizer, train_step
+from ..train.trainer import DeepFMEstimator, make_multi_step, make_optimizer
 from ..utils.profiling import timed
 from .kd_scale_run import best_params_on, serving_ms
 
@@ -51,27 +51,29 @@ def table_bytes(params) -> int:
 
 
 def train_step_ms(mcfg, k=16, b=2048, device: DeviceLike = None) -> float:
-    """Median ms per train step over ``k`` distinct seeded batches of ``b``
-    rows, issued back to back between two CUDA events (the host clock on
-    the CPU), after one warm-up pass; the median of 5 passes."""
+    """Median ms per train step of one ``k``-step dispatch, as the script
+    times it: ``make_multi_step`` over ``k`` distinct seeded batches of ``b``
+    rows (one CUDA graph replay on the card, the steps run eagerly on the
+    CPU), one warm-up dispatch (on the card the capture), then 5 dispatches
+    between two CUDA events (the host clock on the CPU), each from the state
+    the previous one left; the median over ``k``."""
     device = resolve_device(device)
     tcfg = TrainConfig(batch_size=b, steps_per_call=k)
     params = deepfwfm.init_params(torch.Generator().manual_seed(0), mcfg, device=device)
     optimizer = make_optimizer(tcfg)
     opt_state = optimizer.init(params)
+    multi = make_multi_step(mcfg, tcfg, optimizer)
     rng = np.random.default_rng(0)
     xi = rng.integers(0, [s for s in mcfg.feature_sizes[13:]],
                       size=(k, b, 26)).astype(np.int32)
     xv = rng.normal(size=(k, b, 13)).astype(np.float32)
     y = (rng.random((k, b)) < 0.3).astype(np.float32)
-    batches = list(batching.prefetch_to_device(
-        batching.iter_batches(xi.reshape(k * b, 26), xv.reshape(k * b, 13), y.reshape(-1), b),
-        device))
+    xi, xv, y = (torch.from_numpy(a).to(device) for a in (xi, xv, y))
+    mask = torch.ones((k, b), device=device)
     gen = torch.Generator(device=device).manual_seed(1)
 
     def run() -> None:
-        for batch in batches:
-            train_step(params, opt_state, batch, mcfg, tcfg, optimizer, generator=gen)
+        multi(params, opt_state, xi, xv, y, mask, gen, k_real=k)
 
     cuda = device.type == "cuda"
     timed(run, cuda)

@@ -10,15 +10,19 @@ names and signatures; every timer returns seconds per call.
 * :func:`simple_timeit` is the host clock with a device sync per call: what
   a caller sees.
 * :func:`marginal_timeit` and :func:`scan_timeit` return the device's seconds
-  per forward. The JAX versions got that number from a TPU behind a remote
-  link by compiling several forwards into one dispatch (a straight line of
-  ``k2`` forwards less one of ``k1``; a ``lax.scan`` of ``iters`` forwards) so
-  that the link's round trip cancelled. Here the device is local and CUDA
-  events time it directly: same quantity, same arguments, no ``lax.scan``.
-  ``marginal_timeit`` times the ``k2`` distinct inputs between two events
-  (the least of ``reps``), ``scan_timeit`` ``iters`` back-to-back forwards of
-  one input on one stream (the median of ``reps``). On the CPU both use the
-  host clock.
+  per forward of the compiled forward, as the JAX versions do. Those compile
+  several forwards into one dispatch (a straight line of ``k1`` and of ``k2``
+  forwards; a ``lax.scan`` of ``iters`` forwards); on the card the
+  counterpart is a CUDA graph (:class:`.cuda_graph.Graphed`), and each replay
+  is timed between two CUDA events. ``marginal_timeit`` captures one graph of
+  ``k1`` and one of ``k2`` of the distinct inputs and returns JAX's marginal
+  ``(min t(k2) - min t(k1)) / (k2 - k1)`` over ``reps``; ``scan_timeit``
+  captures a chunk of back-to-back forwards of one input and replays it
+  ``iters / chunk`` times, the median of ``reps`` over ``iters``. The graphs,
+  and the activations they hold, are freed when the timer returns. A capture
+  that fails raises: nothing gives way to eager forwards on the card. On the
+  CPU both run the forwards eagerly by the host clock (``marginal_timeit``
+  the least of ``reps`` runs of the ``k2`` inputs, over ``k2``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from .cuda_graph import Graphed
+
 # the reference's profiler span names (model/DeepFMs.py:294,340,351,362,365,395)
 SCOPE_FM = "FM - Component"
 SCOPE_FWLW = "FM FW LW"
@@ -39,6 +45,7 @@ SCOPE_SECOND_ORDER = "FM Second Order"
 SCOPE_DEEP = "Deep - Component"
 
 TRACE_FILE = "trace.json"
+SCAN_CHUNK = 10   # forwards a graph of scan_timeit: about 10**3 nodes at B=1, quick to instantiate
 
 
 def named_scope(name: str):
@@ -101,39 +108,81 @@ def timed(run: Callable[[], None], cuda: bool) -> float:
     return start.elapsed_time(end) * 1e-3
 
 
+def _captured(fn: Callable, model, args_list: Sequence[tuple], name: str) -> Graphed:
+    """``fn(model, *args)`` for each argument tuple, captured into one CUDA
+    graph on the inputs' device, with the inputs as its static buffers."""
+    arity = len(args_list[0])
+    flat = [t for args in args_list for t in args]
+
+    def forwards(*xs):
+        return [fn(model, *xs[i:i + arity]) for i in range(0, len(xs), arity)]
+    what = getattr(fn, "__qualname__", type(fn).__name__)
+    return Graphed(forwards, flat, device=flat[0].device,
+                   name=f"{name}'s {len(args_list)} forwards of {what}")
+
+
 def marginal_timeit(fn: Callable, model, inputs, *, k1: int = 1, k2: int = 16,
                     reps: int = 7) -> float:
-    """Device seconds per forward over ``k2`` DISTINCT inputs.
+    """Device seconds per forward, straight-line regime: the marginal cost of
+    one more forward in one dispatch.
 
-    ``inputs`` is a list of at least ``k2`` argument tuples. The forwards are
-    issued one after the other between two CUDA events; the least of ``reps``
-    runs, over ``k2``, is returned. ``k1`` is kept for the signature."""
+    ``inputs`` is a list of at least ``k2`` DISTINCT argument tuples. On the
+    card the first ``k1`` and the first ``k2`` of them are captured into one
+    CUDA graph each; each replay is timed between two CUDA events, and
+    ``(min t(k2) - min t(k1)) / (k2 - k1)`` over ``reps`` replays of each is
+    returned, as the JAX version returns it for its two compiled dispatches.
+    On the CPU the ``k2`` forwards run eagerly, and the least of ``reps``
+    runs by the host clock, over ``k2``, is returned."""
     # a short list would run len(inputs) forwards and still divide by k2
     assert len(inputs) >= k2 > k1, \
         f"marginal_timeit needs >= k2={k2} distinct inputs, got {len(inputs)}"
-    cuda = _on_cuda(inputs[0])
+    if not _on_cuda(inputs[0]):
+        def run():
+            for a in inputs[:k2]:
+                fn(model, *a)
 
-    def run():
-        for a in inputs[:k2]:
-            fn(model, *a)
-
-    run()
+        run()
+        return min(timed(run, False) for _ in range(reps)) / k2
+    g1 = _captured(fn, model, inputs[:k1], "marginal_timeit")
+    g2 = _captured(fn, model, inputs[:k2], "marginal_timeit")
+    g1.replay()
+    g2.replay()
     _sync()
-    return min(timed(run, cuda) for _ in range(reps)) / k2
+    t1s, t2s = [], []
+    for _ in range(reps):
+        t1s.append(timed(g1.replay, True))
+        t2s.append(timed(g2.replay, True))
+    return (min(t2s) - min(t1s)) / (k2 - k1)
 
 
 def scan_timeit(fn: Callable, model, xi, xv, *, iters: int = 100,
                 reps: int = 3, warmup: bool = True) -> float:
     """Device seconds per forward of one input: ``iters`` forwards back to back
-    on one stream between two CUDA events, the median of ``reps`` runs."""
-    cuda = _on_cuda((xi, xv))
+    in as few dispatches as a graph can hold, the median of ``reps`` runs.
+
+    On the card a chunk of at most :data:`SCAN_CHUNK` forwards (the largest
+    that divides ``iters``) is captured into one CUDA graph and replayed
+    ``iters / chunk`` times between two CUDA events (``warmup``: one replay
+    before). On the CPU the ``iters`` forwards run eagerly by the host clock
+    (``warmup``: one forward before)."""
+    if not _on_cuda((xi, xv)):
+        def run_eager():
+            for _ in range(iters):
+                fn(model, xi, xv)
+
+        if warmup:
+            fn(model, xi, xv)
+        times = sorted(timed(run_eager, False) for _ in range(reps))
+        return times[len(times) // 2] / iters
+    chunk = max(d for d in range(1, min(iters, SCAN_CHUNK) + 1) if iters % d == 0)
+    graph = _captured(fn, model, [(xi, xv)] * chunk, "scan_timeit")
 
     def run():
-        for _ in range(iters):
-            fn(model, xi, xv)
+        for _ in range(iters // chunk):
+            graph.replay()
 
     if warmup:
-        fn(model, xi, xv)
+        graph.replay()
         _sync()
-    times = sorted(timed(run, cuda) for _ in range(reps))
+    times = sorted(timed(run, True) for _ in range(reps))
     return times[len(times) // 2] / iters
