@@ -92,8 +92,8 @@ Phases, each printed on its own line:
      dropout on (six replays and a short group of four eager steps) against
      steps_per_call=1 from the same state and generator: the first loss equal, sparsity
      within two parameters, and under torch's deterministic algorithms every parameter
-     within STEP_TOL (beside it the spread of two eager fits with the card's atomic
-     scatter-add); ms a train step in both forms; the pipeline leg at 1M rows with
+     within STEP_TOL (beside it the spread of two fits at steps_per_call=1 with the card's
+     atomic scatter-add); ms a train step graphed and eager; the pipeline leg at 1M rows with
      --k-steps 8 against --k-steps 1.
  21. the compiled timers: run_benchmark on the flagship in fp32 and dynamic int8 at B=8192
      and tools.pruned_serving_bench at B=8192 and B=1 (7 arms), every timer through CUDA
@@ -103,8 +103,19 @@ Phases, each printed on its own line:
      fused tower launched inside the timers' graphs once a forward and equal to its plain
      version; each reading beside the reading of the eager timers for the same call,
      and the arms' ranking under both.
+ 22. the per-batch compiled dispatch: fit at its default steps_per_call=1 on the flagship,
+     30 steps of 2,048 (the last padded), a refresh every 10, dropout on: every step, refresh
+     and eval batch one graph replay (make_train_step, prune_params, make_eval_fn; counted),
+     graphed and eager fits in turns under deterministic algorithms equal bit for bit
+     (parameters, optimizer state, losses, train AUC), fit seconds, capture seconds and peak
+     allocated memory of both; the eval fn's batches against eager forwards; host-clock ms
+     a step (median and range) and the device's busy share, graphed against eager, of the
+     fit's loop and of the steps alone; then cli.main_all for a checkpoint and
+     cli.quantization -dynamic_quantization 1 -quantization_aware 1 at its defaults on
+     tiny-criteo: the QAT fit's steps replayed, the fused tower launched in the dynamic
+     benchmark and equal to its plain version.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17, 18, 19, 20, 21 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17, 18, 19, 20, 21, 22 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -137,7 +148,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21))
+                (21, 21), (22, 22))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
@@ -1019,7 +1030,7 @@ def first_step(rank: int, est, full, batch0, gen_of, to_dev, seed: int, *, piece
     local0 = to_dev(mesh_mod.shard_batch(batch0, mesh, axes, batch))
     loss, grads = trainer.loss_and_grads(
         est.params, local0, cfg, tc, generator=gen_of(mesh_mod.batch_rows(mesh, axes, batch)),
-        forward_fn=forward or est._forward_fn(), group=est._batch_group(), **teacher(local0))
+        forward_fn=forward or est.forward_fn, group=est._batch_group(), **teacher(local0))
     est._reducer()(grads)
     loss = float(mesh.all_reduce(loss, axes))
     names = [n for n, _ in _tree.named_leaves(est.params)]
@@ -1112,7 +1123,7 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
         def step():
             return trainer.train_step(est.params, est.opt_state, cycle[next(step_i) % 4], cfg,
                                       tc, opt, reduce=reduce, generator=gen,
-                                      forward_fn=est._forward_fn())
+                                      forward_fn=est.forward_fn)
 
         res["step_ms"] = step_times(step, device, SHARD_TIMED)
         mesh.traffic.clear()
@@ -1219,7 +1230,7 @@ def kd_qat_rank(rank: int, device, seed: int, cfg, sizes, mesh, teacher_params, 
         if leg_teacher:
             batches = trainer._with_teacher(batches, teacher_cycle, batch)
         cycle = [to_dev(b) for b in est._local_batches(batches)]
-        opt, reduce, fwd = trainer.make_optimizer(tc), est._reducer(), est._forward_fn()
+        opt, reduce, fwd = trainer.make_optimizer(tc), est._reducer(), est.forward_fn
         step_i = iter(range(10 ** 6))
 
         def step():
@@ -1375,7 +1386,7 @@ def graphed_against_eager(est, cfg, xi, xv, y, teacher, seed: int, to_dev, profi
         prune_kw.update(mesh=mesh, table_axes=est._table_axes,
                         dense_rows=type(est).model_spec(cfg).dense_rows)
     opt, reduce, group, fwd = (trainer.make_optimizer(tc), est._reducer(), est._batch_group(),
-                               est._forward_fn())
+                               est.forward_fn)
     multi = trainer.make_multi_step(cfg, tc, opt, use_kd=teacher is not None, forward_fn=fwd,
                                     prune_kw=prune_kw, mesh=mesh, reduce=reduce, group=group)
 
@@ -2307,9 +2318,9 @@ def dispatch_phase(args, cfg, card: str) -> dict:
     same_masks = all(torch.equal(a, m) for a, m in zip(masks_g, masks_e))
     check(same_masks, "graphed dropout draws differ from the eager steps' draws")
 
-    # fit: an epoch with steps_per_call=10 (graphed) against steps_per_call=1 (eager). The
-    # card's scatter-add sums with atomics in any order, and Adam turns the last bit of a
-    # gradient near its eps into up to lr a step (phase 8), so two eager fits already part
+    # fit: an epoch with steps_per_call=10 against steps_per_call=1 (a replay a step, phase
+    # 22). The card's scatter-add sums with atomics in any order, and Adam turns the last bit
+    # of a gradient near its eps into up to lr a step (phase 8), so two fits already part
     # after 64 steps: that spread is read, and the forms are held to STEP_TOL under torch's
     # deterministic algorithms (the scatter-add sorted), where the same steps give the same bits
     xi_f, xv_f, y_f = make_training_rows(cfg, args.seed + 10, TRAIN_BATCH * TRAIN_BATCHES)
@@ -2364,10 +2375,10 @@ def dispatch_phase(args, cfg, card: str) -> dict:
                  f"eager steps) {g_s:.3f} s (capture included) | steps_per_call=1 {e_s:.3f} s; "
                  f"first loss {g_fit.last_epoch_losses[0]:.6f} vs "
                  f"{e_fit.last_epoch_losses[0]:.6f}, every loss within {loss_gap:.1e}, "
-                 f"non-zeros {nz[0]} vs {nz[1]}; within STEP_TOL: graphed vs eager {share:.6f} "
-                 f"(furthest {far:.3e}), two eager fits {share_ee:.6f} (furthest {far_ee:.3e}); "
-                 f"under deterministic algorithms graphed vs eager {share_d:.6f} (furthest "
-                 f"{far_d:.3e}, bit for bit: {bitwise_d})")
+                 f"non-zeros {nz[0]} vs {nz[1]}; within STEP_TOL: K={DISPATCH_FIT_K} vs K=1 "
+                 f"{share:.6f} (furthest {far:.3e}), two K=1 fits {share_ee:.6f} (furthest "
+                 f"{far_ee:.3e}); under deterministic algorithms K={DISPATCH_FIT_K} vs K=1 "
+                 f"{share_d:.6f} (furthest {far_d:.3e}, bit for bit: {bitwise_d})")
     del g_fit, e_fit, e2_fit, gd_fit, ed_fit
 
     # ms a train step, graphed (10 steps and the refresh a replay) against eager
@@ -2716,6 +2727,301 @@ def timers_phase(args, cfg, card: str) -> dict:
     return {"launches_timers_path": path_launches, "max_abs_err_timers": tower_err}
 
 
+PER_BATCH_STEPS = 30      # phase 22's fit: 29 full batches and a padded tail, 3 refreshes
+PER_BATCH_TAIL = 1000     # real rows of the tail batch
+PER_BATCH_ROUNDS = 6      # host-clock rounds of the step loop, each form in turns
+PER_BATCH_EVAL = 3 * BATCH + 1234     # rows of the eval-tail check: four batches, no group
+
+
+class EagerEval:
+    """What ``make_eval_fn`` returns, eager: the forward of one batch."""
+
+    def __init__(self, mcfg, forward_fn=None, **_):
+        from xsdeepfwfm_deprecated_torch.models import deepfwfm
+        self.mcfg, self.forward_fn = mcfg, forward_fn or deepfwfm.forward
+
+    @torch.inference_mode()
+    def __call__(self, params, xi, xv):
+        return self.forward_fn(params, xi, xv, self.mcfg)
+
+
+@contextlib.contextmanager
+def eager_per_batch(trainer, pruning):
+    """``fit``'s per-batch functions swapped for the eager functions they
+    replay, for the block: ``make_train_step`` for ``train_step``,
+    ``PruneRefresh`` for ``prune_params_``, ``make_eval_fn`` for the
+    forward. The eager form that phase 22 holds the graphed fit to."""
+    def make_train_step(mcfg, tcfg, optimizer, *, use_kd=False, forward_fn=None, mesh=None,
+                        reduce=None, group=None):
+        def step(params, opt_state, batch, generator=None):
+            return trainer.train_step(params, opt_state, batch, mcfg, tcfg, optimizer,
+                                      reduce=reduce, generator=generator,
+                                      teacher_logits=batch.get("teacher"),
+                                      forward_fn=forward_fn or trainer.deepfwfm.forward,
+                                      group=group)
+        return step
+
+    def prune_refresh(prune_kw, mesh=None):
+        return lambda params, adaptive: pruning.prune_params_(params, adaptive, **prune_kw)
+
+    saved = trainer.make_train_step, trainer.PruneRefresh, trainer.make_eval_fn
+    trainer.make_train_step, trainer.PruneRefresh, trainer.make_eval_fn = (
+        make_train_step, prune_refresh, EagerEval)
+    try:
+        yield
+    finally:
+        trainer.make_train_step, trainer.PruneRefresh, trainer.make_eval_fn = saved
+
+
+def per_batch_phase(args, cfg, card: str) -> dict:
+    """Phase 22: the per-batch compiled dispatch, ``fit`` at its default
+    ``steps_per_call=1``: each step, each refresh and each eval batch that
+    fills no scanned group one CUDA graph replay, against the same fit with
+    those functions eager, then ``cli.quantization`` at its defaults with a
+    QAT fit and the dynamic-int8 benchmark. Returns the fused tower's
+    launches on the CLI's path and its max |diff| against the plain version."""
+    import collections
+    import os
+    import tempfile
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.cli import main_all, quantization
+    from xsdeepfwfm_deprecated_torch.compression import pruning
+    from xsdeepfwfm_deprecated_torch.data import batching, get_dataset
+    from xsdeepfwfm_deprecated_torch.entry import flagship_train_config
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
+    from xsdeepfwfm_deprecated_torch.train import trainer
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+
+    quiet = logging.getLogger("chip_smoke.per_batch")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    lines = []
+    n_rows = (PER_BATCH_STEPS - 1) * TRAIN_BATCH + PER_BATCH_TAIL
+    xi, xv, y = make_training_rows(cfg, args.seed + 40, n_rows)
+    tc = flagship_train_config(n_epochs=1, batch_size=TRAIN_BATCH, prune=True, warm=0,
+                               sparse=0.9, random_seed=args.seed)
+    n_refresh = -(-PER_BATCH_STEPS // tc.prune_interval)
+    n_eval = -(-n_rows // tc.eval_batch_size)      # the train rows' eval: no group of 8 fills
+    check(n_rows < trainer.EVAL_SCAN_K * tc.eval_batch_size, "phase 22's eval fills a group")
+
+    replay, init = cuda_graph.Graphed.replay, cuda_graph.Graphed.__init__
+
+    @contextlib.contextmanager
+    def counted():
+        """Replays by the graph's function, and seconds spent capturing."""
+        seen = {"replays": collections.Counter(), "capture_s": 0.0}
+
+        def counted_replay(graph):
+            seen["replays"][graph.name.split("(")[0]] += 1
+            return replay(graph)
+
+        def timed_init(graph, *a, **kw):
+            t0 = time.perf_counter()
+            init(graph, *a, **kw)
+            seen["capture_s"] += time.perf_counter() - t0
+        cuda_graph.Graphed.replay, cuda_graph.Graphed.__init__ = counted_replay, timed_init
+        try:
+            yield seen
+        finally:
+            cuda_graph.Graphed.replay, cuda_graph.Graphed.__init__ = replay, init
+
+    def fit(graphed: bool):
+        """One epoch at steps_per_call=1 from seeded weights: (estimator,
+        seconds, replays by function, capture seconds, GB allocated at the
+        fit's peak above what was allocated when it began)."""
+        est = trainer.DeepFMEstimator(cfg, tc, logger=quiet)
+        est.init_params(args.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        with counted() as seen, (contextlib.nullcontext() if graphed
+                                 else eager_per_batch(trainer, pruning)):
+            t0 = time.perf_counter()
+            est.fit(xi, xv, y)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+        return est, secs, seen["replays"], seen["capture_s"], peak_gb
+
+    # the fits in turns, graphed, eager, eager, graphed, under deterministic algorithms
+    with deterministic():
+        g1, e1, e2, g2 = (fit(graphed) for graphed in (True, False, False, True))
+    want = {"make_train_step": PER_BATCH_STEPS, "prune_params": n_refresh, "make_eval_fn": n_eval}
+    for est, secs, replays, capture_s, peak in (g1, g2):
+        check(dict(replays) == want, f"graphed fit: replays {dict(replays)}, want {want}")
+    for est, secs, replays, capture_s, peak in (e1, e2):
+        check(not replays and capture_s == 0.0, f"eager fit: replays {dict(replays)}")
+    for est, *_ in (g1, g2, e1, e2):
+        check(est._step == PER_BATCH_STEPS and len(est.last_epoch_losses) == PER_BATCH_STEPS,
+              f"{est._step} steps")
+    ref = e1[0]
+    same = {}
+    for name, (est, *_) in (("graphed", g1), ("graphed again", g2), ("eager again", e2)):
+        same[name] = (all(torch.equal(a, b) for a, b in zip(
+            _tree.leaves((est.params, est.opt_state)), _tree.leaves((ref.params, ref.opt_state))))
+            and est.last_epoch_losses == ref.last_epoch_losses
+            and est.train_result == ref.train_result)
+        check(same[name], f"the {name} fit differs from the eager fit under deterministic "
+                          f"algorithms")
+    sparsity = ref.epoch_sparsity[-1]
+    check(sparsity > 0, "the fit did not prune")
+    lines.append(
+        f"  fit at steps_per_call=1, one epoch of {PER_BATCH_STEPS} x {TRAIN_BATCH} (the last of "
+        f"{PER_BATCH_TAIL} real rows), a refresh every {tc.prune_interval} steps, dropout on, "
+        f"under deterministic algorithms, graphed and eager in turns: replays a graphed fit "
+        f"{dict(g1[2])}; graphed {g1[1]:.3f} and {g2[1]:.3f} s (captures {g1[3]:.3f} and "
+        f"{g2[3]:.3f} s of it), eager {e1[1]:.3f} and {e2[1]:.3f} s; the fit's peak above what "
+        f"was allocated before it, graphed {g1[4]:.3f} and {g2[4]:.3f} GB, eager {e1[4]:.3f} "
+        f"and {e2[4]:.3f} GB; losses, "
+        f"parameters, optimizer state and train AUC of every fit equal to the first eager "
+        f"fit's bit for bit: {all(same.values())}; sparsity {sparsity:.4f}%, train AUC "
+        f"{ref.train_result[-1]:.6f}")
+
+    # the eval fn's batches (no scanned group): graphed against eager forwards
+    est = g1[0]
+    xi_e, xv_e, _ = make_training_rows(cfg, args.seed + 41, PER_BATCH_EVAL)
+    with counted() as seen:
+        graphed_logits = est._predict_logits(xi_e, xv_e)
+    est._eval_fn = None
+    with eager_per_batch(trainer, pruning):
+        eager_logits = est._predict_logits(xi_e, xv_e)
+    est._eval_fn = None
+    n_tail = -(-PER_BATCH_EVAL // tc.eval_batch_size)
+    eval_diff = float(np.abs(graphed_logits - eager_logits).max())
+    check(dict(seen["replays"]) == {"make_eval_fn": n_tail},
+          f"eval of {PER_BATCH_EVAL} rows: replays {dict(seen['replays'])}")
+    check(graphed_logits.shape == (PER_BATCH_EVAL,) and eval_diff == 0.0,
+          f"the graphed eval batches differ from eager forwards by {eval_diff}")
+    lines.append(f"  _predict_logits of {PER_BATCH_EVAL:,} rows ({n_tail} batches of "
+                 f"{tc.eval_batch_size}, the last padded): {n_tail} eval-fn replays, against "
+                 f"eager forwards max |diff| {eval_diff:.1e}")
+    del g1, g2, e1, e2, ref, est
+
+    # ms a step at B=2048: the fit's loop (30 steps, 3 refreshes) and the steps alone
+    opt = trainer.make_optimizer(tc)
+    params = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg)
+    state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batches = list(batching.prefetch_to_device(batching.iter_batches(xi, xv, y, TRAIN_BATCH), dev))
+    prune_kw = dict(emb_r=tc.emb_r, emb_corr=tc.emb_corr, prune_fm=True, prune_deep=True,
+                    prune_r=tc.prune_r)
+    refresh_at = {i: tc.adaptive_sparse(i + 1) for i in range(PER_BATCH_STEPS)
+                  if i % tc.prune_interval == tc.prune_interval - 1 or i == PER_BATCH_STEPS - 1}
+    forms = {"graphed": (trainer.make_train_step(cfg, tc, opt), trainer.PruneRefresh(prune_kw))}
+    with eager_per_batch(trainer, pruning):
+        forms["eager"] = (trainer.make_train_step(cfg, tc, opt), trainer.PruneRefresh(prune_kw))
+
+    def loop(form: str, prune: bool):
+        step, refresh = forms[form]
+
+        def run():
+            for i, batch in enumerate(batches):
+                step(params, state, batch, gen)
+                if prune and i in refresh_at:
+                    refresh(params, refresh_at[i])
+            torch.cuda.synchronize()
+        return run
+
+    timing = {}
+    for prune in (True, False):
+        runs = {form: loop(form, prune) for form in forms}
+        for run in runs.values():
+            run()                  # the graphed form captures here
+        per_step = {form: [] for form in forms}
+        for r in range(PER_BATCH_ROUNDS):
+            for form in (("graphed", "eager") if r % 2 == 0 else ("eager", "graphed")):
+                t0 = time.perf_counter()
+                runs[form]()
+                per_step[form].append((time.perf_counter() - t0) * 1e3 / PER_BATCH_STEPS)
+        for form, run in runs.items():
+            wall, dev_ms, _ = profile_top(run, calls=2, top=1)
+            timing[(form, prune)] = (per_step[form], dev_ms / PER_BATCH_STEPS,
+                                     dev_ms / wall)
+    for prune in (True, False):
+        what = (f"a step of the fit's loop ({PER_BATCH_STEPS} steps, {len(refresh_at)} refreshes)"
+                if prune else "a step alone")
+        parts = []
+        for form in forms:
+            ms, dev_step, share = timing[(form, prune)]
+            parts.append(f"{form} {statistics.median(ms):.3f} ms by the host clock (median of "
+                         f"{PER_BATCH_ROUNDS}, {min(ms):.3f} to {max(ms):.3f}; "
+                         f"{TRAIN_BATCH / statistics.median(ms) * 1e3:.0f} ex/s), device "
+                         f"{dev_step:.4f} ms a step, {share:.0%} busy under the profiler")
+        lines.append(f"  {what}, B={TRAIN_BATCH}, Adam + L2, dropout on: " + " | ".join(parts))
+    check(all(np.isfinite(ms).all() for ms, _, _ in timing.values()), "a step time")
+    del forms, params, state, batches
+
+    # cli.quantization at its defaults (steps_per_call 1, 8 epochs) on tiny-criteo: a QAT fit
+    # through the graphs and the dynamic-int8 benchmark through the fused tower
+    tmp = tempfile.TemporaryDirectory()
+    home = os.getcwd()
+    os.chdir(tmp.name)          # the CLIs write ./saved_models and ./logs
+    try:
+        _, train_rows, _, test_rows = get_dataset("tiny-criteo")
+        with counted() as seen_fit:
+            t0 = time.perf_counter()
+            teacher = main_all.main(["-dataset", "tiny-criteo", "-n_epochs", "1",
+                                     *FLAGSHIP_FLAGS])
+            main_s = time.perf_counter() - t0
+        quant_flags = ["-dataset", "tiny-criteo", "-save_model_path", teacher.save_model_name,
+                       "-dynamic_quantization", "1", "-quantization_aware", "1", *FLAGSHIP_FLAGS]
+        int8_mlp.launches = 0
+        with counted() as seen_cli:
+            t0 = time.perf_counter()
+            q = quantization.main(quant_flags)
+            quant_s = time.perf_counter() - t0
+        cli_launches = int8_mlp.launches
+        with counted() as seen_eager, eager_per_batch(trainer, pruning):   # beside it, eager
+            t0 = time.perf_counter()
+            q_eager = quantization.main(quant_flags)
+            eager_quant_s = time.perf_counter() - t0
+        check(not seen_eager["replays"]["make_train_step"] and q_eager["qat"]["estimator"]._step
+              == q["qat"]["estimator"]._step, "the eager cli.quantization's fit")
+        qat = q["qat"]["estimator"]
+        steps_epoch = -(-train_rows["label"].shape[0] // TRAIN_BATCH)
+        check(qat.tcfg.steps_per_call == 1 and qat._step == qat.tcfg.n_epochs * steps_epoch,
+              f"the QAT fit: steps_per_call {qat.tcfg.steps_per_call}, {qat._step} steps")
+        for what, seen, steps in (("cli.main_all", seen_fit, steps_epoch),
+                                  ("cli.quantization's QAT fit", seen_cli, qat._step)):
+            check(seen["replays"]["make_train_step"] == steps and seen["replays"]["make_eval_fn"],
+                  f"{what}: replays {dict(seen['replays'])} for {steps} steps")
+        # with -quantization_aware 1 the loaded model is benchmarked in its int8 QAT form too
+        check(q["dynamic"]["tower_launches"] > 0 and q["qat"]["tower_launches"] > 0,
+              f"fused tower launches: { {k: v['tower_launches'] for k, v in q.items()} }")
+        xi_t = np.asarray(test_rows["index"][:BATCH], np.int32)
+        xv_t = np.asarray(test_rows["value"][:BATCH], np.float32)
+        tower_err = fused_tower_err(q["dynamic"]["model"], teacher.mcfg, xi_t, xv_t)
+        check(tower_err == 0.0, f"int8_mlp vs plain version on cli.quantization's dynamic model: "
+                                f"{tower_err}")
+        bench = {k: v["benchmark"] for k, v in q.items()}
+        lines.append(
+            f"  cli.main_all -n_epochs 1 on tiny-criteo {main_s:.1f} s ({steps_epoch} steps: "
+            f"replays {dict(seen_fit['replays'])}, captures {seen_fit['capture_s']:.2f} s); "
+            f"cli.quantization -dynamic_quantization 1 -quantization_aware 1 at its defaults "
+            f"{quant_s:.1f} s (with the per-batch functions eager {eager_quant_s:.1f} s): QAT "
+            f"fit of {qat._step} steps, replays {dict(seen_cli['replays'])}, captures "
+            f"{seen_cli['capture_s']:.2f} s; QAT test AUC eager "
+            f"{q_eager['qat']['benchmark']['auc']:.6f}; test AUC "
+            f"original {bench['original']['auc']:.6f}, dynamic {bench['dynamic']['auc']:.6f}, "
+            f"QAT {bench['qat']['auc']:.6f}; fused tower launches "
+            f"{ {k: v['tower_launches'] for k, v in q.items()} }, int8_mlp vs plain version on "
+            f"the dynamic model max |diff| {tower_err:.1e}")
+    finally:
+        os.chdir(home)
+        tmp.cleanup()
+
+    phase(22, f"per-batch compiled dispatch: fit at steps_per_call=1 as graph replays against "
+              f"eager, {time.perf_counter() - t_phase:.1f} s {where}")
+    for line in lines:
+        print(line + f" {where}")
+    return {"launches_per_batch_path": cli_launches, "max_abs_err_per_batch": tower_err}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -2943,7 +3249,7 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21), without the result lines")
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22), without the result lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
                          "the fused tower's launches and its max |diff| against the plain "
@@ -2998,7 +3304,7 @@ def main(argv=None) -> int:
         for first, run in ((18, scale_phase), (19, pipeline_phase)):
             if first in groups:
                 run(card)
-        for first, run in ((20, dispatch_phase), (21, timers_phase)):
+        for first, run in ((20, dispatch_phase), (21, timers_phase), (22, per_batch_phase)):
             if first in groups:
                 run(args, cfg, card)
         print(card)
@@ -3032,13 +3338,16 @@ def main(argv=None) -> int:
     # ---- 21. the compiled timers, beside the eager readings
     timed_path = timers_phase(args, cfg, card)
 
+    # ---- 22. the per-batch compiled dispatch: fit at steps_per_call=1, graphed against eager
+    per_batch = per_batch_phase(args, cfg, card)
+
     # ---- result lines
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
         **served, **trained, **deployed, **sharded, **scaled, **piped, **dispatched,
-        **timed_path}]
+        **timed_path, **per_batch}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -132,7 +132,7 @@ def _traffic(mesh, exchange):
     stacked = next(batching.stack_groups(batches, K))
     stacked = {key: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                for key, v in stacked.items()}
-    multi = trainer.make_multi_step(cfg, tc, opt, forward_fn=est._forward_fn(), mesh=mesh,
+    multi = trainer.make_multi_step(cfg, tc, opt, forward_fn=est.forward_fn, mesh=mesh,
                                     reduce=est._reducer(), group=est._batch_group())
     mesh.traffic.clear()
     multi(est.params, est.opt_state, stacked["xi"], stacked["xv"], stacked["y"], stacked["mask"],
@@ -142,7 +142,7 @@ def _traffic(mesh, exchange):
     trainer.train_step(est.params, est.opt_state,
                        {key: torch.from_numpy(np.asarray(v)) for key, v in batches[0].items()
                         if key != "n_valid"}, cfg, tc, opt, reduce=est._reducer(),
-                       generator=shard, forward_fn=est._forward_fn(), group=est._batch_group())
+                       generator=shard, forward_fn=est.forward_fn, group=est._batch_group())
     step = list(mesh.traffic)
     try:
         multi(est.params, est.opt_state, stacked["xi"], stacked["xv"], stacked["y"],

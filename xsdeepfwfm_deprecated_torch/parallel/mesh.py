@@ -38,6 +38,7 @@ collectives of JAX's compiled step.
 
 from __future__ import annotations
 
+import atexit
 import os
 from dataclasses import dataclass
 from datetime import timedelta
@@ -188,7 +189,13 @@ def init_distributed(backend: str, init_method: Optional[str] = None,
     ``jax.distributed.initialize``, ``:46-55``). ``world_size`` and ``rank``
     default to torchrun's ``WORLD_SIZE`` and ``RANK``, ``init_method`` to
     ``env://``. A world of one process joins nothing, as in JAX. Returns
-    whether a process group is initialized."""
+    whether a process group is initialized.
+
+    A group made here is destroyed at the process's exit, as JAX registers
+    its shutdown, unless the caller destroyed it before: a gloo group left
+    to the interpreter's teardown can abort the process there ("terminate
+    called without an active exception"). A process that runs one program
+    after another keeps the group between them."""
     if dist.is_initialized():
         return True
     world_size = int(os.environ.get("WORLD_SIZE", "1")) if world_size is None else world_size
@@ -198,7 +205,14 @@ def init_distributed(backend: str, init_method: Optional[str] = None,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank,
                             timeout=timedelta(seconds=timeout_s))
+    atexit.register(_destroy_at_exit, dist.group.WORLD)
     return True
+
+
+def _destroy_at_exit(group) -> None:
+    """Destroy ``group`` if it is still the process's group."""
+    if dist.is_initialized() and dist.group.WORLD is group:
+        dist.destroy_process_group()
 
 
 def local_rank_setup(device: DeviceLike = None) -> Tuple[torch.device, str]:

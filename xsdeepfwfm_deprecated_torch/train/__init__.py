@@ -1,1 +1,3 @@
 """Training: optimizers, estimator, checkpoints, metrics, recovery."""
+
+from .trainer import DeepFMEstimator, make_eval_fn, make_optimizer, make_train_step  # noqa: F401

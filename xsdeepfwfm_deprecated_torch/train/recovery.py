@@ -7,9 +7,10 @@ supervises ``fit``:
   ``torch.OutOfMemoryError`` and ``torch.AcceleratorError`` derive from it) or
   an ``OSError`` that escapes the training loop counts as recoverable.
   Assertion, value and type errors do not: they are bugs and re-raise at once;
-* **recovery**: the estimator's device state (params, optimizer state) is
-  dropped and ``fit`` starts again with ``resume_from=save_path``, at the
-  epoch after the last per-epoch checkpoint;
+* **recovery**: the estimator's device state (params, optimizer state) and
+  its cached functions with their CUDA graphs are dropped, and ``fit`` starts
+  again with ``resume_from=save_path``, at the epoch after the last per-epoch
+  checkpoint;
 * bounded by ``max_restarts``; the last failure re-raises when they are used up.
 
 The unit of recovery is the process-local fit.
@@ -56,8 +57,9 @@ def fit_with_recovery(est, *fit_args, save_path: str, max_restarts: int = 2,
                 f"restart {attempt}/{max_restarts} "
                 + (f"resuming from {save_path}" if has_ckpt
                    else "from scratch (no checkpoint written yet)"))
-            # drop the device state: its tensors may be invalid after the failure.
-            # fit() initializes params again and builds the optimizer's template
-            # before it loads the checkpoint into them
+            # drop the device state: its tensors may be invalid after the failure, and
+            # so may the graphs captured on them. fit() initializes params again and
+            # builds the optimizer's template before it loads the checkpoint into them
             est.params = None
             est.opt_state = None
+            est._fwd = est._eval_fn = est._scan_eval = None

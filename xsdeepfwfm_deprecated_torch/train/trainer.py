@@ -17,8 +17,8 @@ on a dict of tensors:
 
 Nothing in the per-step loop reads a value back from the device: the losses
 stay there and are fetched once per epoch. Inside a
-``utils.debug.nan_debugging`` block every step's loss is checked with
-``isfinite``, which does read it.
+``utils.debug.nan_debugging`` block every step runs eagerly and its loss is
+checked with ``isfinite``, which does read it.
 
 A ``mesh_data x mesh_model`` mesh larger than 1x1 trains sharded
 (``:227-336, 419-462, 671-722, 773-779``), one process per rank
@@ -48,12 +48,15 @@ every global batch. What JAX's compiler does implicitly is written out:
   The teacher's logits are cut into the ranks' rows with the batch.
 
 The JAX package's compiled dispatch is ported as CUDA graphs
-(``utils/cuda_graph.py``): :func:`make_multi_step` (``:88-159``) runs K full
-train steps over stacked ``(K, B, ...)`` batches, and optionally one prune
-refresh, as one graph replay on the card; :func:`make_scan_eval_fn`
-(``:171-195``) does the same for ``EVAL_SCAN_K`` eval batches. ``fit`` with
-``steps_per_call > 1`` steps through the first, ``_predict_logits`` through
-the second, on one device and on a mesh alike, as in JAX. On a mesh a
+(``utils/cuda_graph.py``): :func:`make_train_step` (``:63-85``) runs one
+train step, :class:`PruneRefresh` one prune refresh and :func:`make_eval_fn`
+(``:162-169``) one eval batch as one graph replay on the card;
+:func:`make_multi_step` (``:88-159``) runs K full train steps over stacked
+``(K, B, ...)`` batches, and optionally one prune refresh, and
+:func:`make_scan_eval_fn` (``:171-195``) ``EVAL_SCAN_K`` eval batches. ``fit``
+steps through the first two at ``steps_per_call=1`` and through the fourth
+above it; ``_predict_logits`` runs its full groups through the last and the
+rest through the eval fn, on one device and on a mesh alike, as in JAX. On a mesh a
 replay holds the rank's collectives: over NCCL, where a CUDA graph can hold
 them; over gloo (and on the CPU) the same groups run their steps eagerly.
 Not ported: super-row table packing, a TPU layout with the same results
@@ -83,8 +86,6 @@ from ..models import deepfwfm
 from ..ops.mlp import BatchShard
 from ..parallel import embedding_sharding as es
 from ..parallel import mesh as mesh_mod
-from ..serving.benchmark import run_benchmark
-from ..serving.predictor import Predictor
 from ..utils import cuda_graph, debug
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt
@@ -297,6 +298,8 @@ class MultiStep:
     padding steps runs its real steps eagerly, then the refresh, on every
     rank alike."""
 
+    name = "make_multi_step"    # what its graphs are called
+
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
                  use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
                  prune_kw: Optional[Dict] = None, mesh: Optional[mesh_mod.Mesh] = None,
@@ -358,8 +361,8 @@ class MultiStep:
             return self._steps(params, opt_state, k_in, generator, live)
         if torch.is_anomaly_enabled():
             raise RuntimeError("autograd's anomaly detection (utils.debug.nan_debugging) reads "
-                               "values back every step and cannot be captured: train with "
-                               "steps_per_call=1 inside it")
+                               "values back every step and cannot be captured: inside it fit "
+                               "steps eagerly at steps_per_call=1")
         shapes = tuple((key, tuple(t.shape), t.dtype) for key, t in k_in.items())
         state = cuda_graph.state_key(params, opt_state) + (id(generator),)
         graph = self._graphs.get(shapes, state, lambda: self._capture(
@@ -379,7 +382,7 @@ class MultiStep:
             self._steps(clone(params), clone(opt_state), one,
                         cuda_graph.clone_generator(generator), [True])
 
-        name = f"make_multi_step({getattr(self.forward_fn, '__qualname__', self.forward_fn)})"
+        name = f"{self.name}({getattr(self.forward_fn, '__qualname__', self.forward_fn)})"
         return cuda_graph.Graphed(
             steps, list(k_in.values()), device=device, name=name, warmup=warmup,
             generators=() if generator is None else (generator,), **_collectives(self.mesh))
@@ -400,6 +403,74 @@ def make_multi_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, 
                      prune_kw=prune_kw, mesh=mesh, reduce=reduce, group=group)
 
 
+class TrainStep(MultiStep):
+    """One train step a dispatch: what :func:`make_train_step` returns.
+
+    ``train_step(params, opt_state, batch, generator=None)`` updates
+    ``params`` and ``opt_state`` in place and returns the loss, a 0-d tensor
+    on their device that the next call does not overwrite. ``batch`` holds
+    ``xi``, ``xv``, ``y`` and ``mask``, the teacher's logits under
+    ``teacher`` for a KD step, and on a mesh this rank's rows with the global
+    batch's real-row count under ``count`` (``DeepFMEstimator._local_batches``).
+    It is :class:`MultiStep` with K=1: on the card one CUDA graph replay of
+    :func:`train_step` and its optimizer update (on a mesh over NCCL with the
+    gradient reduction inside), with the dropout generator registered; on the
+    CPU and over gloo the step runs eagerly. Every batch is stepped, a rank's
+    all-padding rows of a global batch too, as the eager step does."""
+
+    name = "make_train_step"
+
+    def __call__(self, params: Dict, opt_state: Any, batch: Dict[str, torch.Tensor],
+                 generator: Optional[cuda_graph.Generator] = None) -> torch.Tensor:
+        one = {key: batch[key][None] for key in ("xi", "xv", "y", "mask", "teacher", "count")
+               if key in batch}
+        return super().__call__(params, opt_state, one["xi"], one["xv"], one["y"], one["mask"],
+                                generator, one.get("teacher"), k_real=1,
+                                count_k=one.get("count"))[0]
+
+
+def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
+                    use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
+                    mesh: Optional[mesh_mod.Mesh] = None,
+                    reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                    group: Optional[mesh_mod.BatchGroup] = None) -> TrainStep:
+    """One optimizer step a dispatch (the JAX package's jitted
+    ``make_train_step``, ``:63-85``); on a ``mesh``, a rank's sharded step
+    with ``reduce`` and ``group``. See :class:`TrainStep`."""
+    return TrainStep(mcfg, tcfg, optimizer, use_kd=use_kd, forward_fn=forward_fn, mesh=mesh,
+                     reduce=reduce, group=group)
+
+
+class PruneRefresh:
+    """One DeepLight prune refresh a dispatch, the JAX package's jitted
+    ``prune_params`` (``compression/pruning.py:108-109``):
+    ``refresh(params, adaptive)`` is :func:`..compression.pruning.prune_params_`
+    with ``prune_kw``, in place on ``params``. On the card one CUDA graph
+    replay, captured for each parameter tree, the schedule value a 0-d device
+    input; on a ``mesh`` over NCCL with the sharded threshold's all-reduces
+    inside. On the CPU and over gloo the refresh runs eagerly."""
+
+    name = "prune_params"
+
+    def __init__(self, prune_kw: Dict, mesh: Optional[mesh_mod.Mesh] = None):
+        self.prune_kw, self.mesh = prune_kw, mesh
+        self.capture = mesh is None or mesh.capturable
+        self._graphs = cuda_graph.Graphs()
+
+    def __call__(self, params: Dict, adaptive: float) -> None:
+        device = _tree.leaves(params)[0].device
+        target = torch.full((), float(adaptive), dtype=torch.float32, device=device)
+        if not (device.type == "cuda" and self.capture):
+            prune_params_(params, target, **self.prune_kw)
+            return
+
+        def warmup(a):      # on clones of the parameters
+            prune_params_(_tree.tree_map(torch.clone, params), a, **self.prune_kw)
+        self._graphs.get((), cuda_graph.state_key(params), lambda: cuda_graph.Graphed(
+            lambda a: prune_params_(params, a, **self.prune_kw), (target,), device=device,
+            name=self.name, warmup=warmup, **_collectives(self.mesh)))(target)
+
+
 EVAL_SCAN_K = 8
 
 
@@ -412,6 +483,8 @@ class ScanEval:
     B_global)`` logits. On the card one CUDA graph replay, captured for each
     input shape and parameter tree (with the gathers inside, over NCCL); on
     the CPU and over gloo K eager forwards."""
+
+    name = "make_scan_eval_fn"    # what its graphs are called
 
     def __init__(self, mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
                  mesh: Optional[mesh_mod.Mesh] = None, axes: Optional[mesh_mod.Axes] = None):
@@ -431,6 +504,9 @@ class ScanEval:
 
     @torch.inference_mode()
     def __call__(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
+        return self._run(params, xi_k, xv_k)
+
+    def _run(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
         device, mesh = _tree.leaves(params)[0].device, self.mesh
         if device.type != "cuda" or not (mesh is None or mesh.capturable):
             return self._forwards(params, xi_k.to(device), xv_k.to(device))
@@ -438,9 +514,31 @@ class ScanEval:
             (tuple(xi_k.shape), tuple(xv_k.shape)), cuda_graph.state_key(params),
             lambda: cuda_graph.Graphed(
                 lambda xi, xv: self._forwards(params, xi, xv), (xi_k, xv_k), device=device,
-                name=f"make_scan_eval_fn({getattr(self.forward_fn, '__qualname__', '')})",
+                name=f"{self.name}({getattr(self.forward_fn, '__qualname__', '')})",
                 **_collectives(mesh)))
         return graph(xi_k, xv_k).clone()
+
+
+class EvalFn(ScanEval):
+    """The eval forward of one batch a dispatch: ``eval_fn(params, xi, xv)``
+    gives the ``(B,)`` logits (a copy, which the next call does not
+    overwrite), on a ``mesh`` gathered over the ranks of ``axes``. It is
+    :class:`ScanEval` with K=1: on the card one CUDA graph replay, captured
+    for each input shape and parameter tree."""
+
+    name = "make_eval_fn"
+
+    @torch.inference_mode()
+    def __call__(self, params: Dict, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        return self._run(params, xi[None], xv[None])[0]
+
+
+def make_eval_fn(mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
+                 mesh: Optional[mesh_mod.Mesh] = None,
+                 axes: Optional[mesh_mod.Axes] = None) -> EvalFn:
+    """One eval batch a dispatch → its logits (the JAX package's jitted
+    ``make_eval_fn``, ``:162-169``); see :class:`EvalFn`."""
+    return EvalFn(mcfg, forward_fn, mesh=mesh, axes=axes)
 
 
 def make_scan_eval_fn(mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
@@ -492,8 +590,10 @@ class DeepFMEstimator:
         self._table_shards = 1
         self._batch_both = False
         self._blocks = False        # params and optimizer state hold this rank's row blocks
-        self._scan_eval: Optional[ScanEval] = None   # _predict_logits' groups, made on first use
-        self._fwd: Optional[Tuple[Tuple, ForwardFn]] = None   # _forward_fn's, and what it binds
+        # _predict_logits' groups and the batches left over, made on first use
+        self._scan_eval: Optional[ScanEval] = None
+        self._eval_fn: Optional[EvalFn] = None
+        self._fwd: Optional[Tuple[Tuple, ForwardFn]] = None   # forward_fn's, and what it binds
 
     # ------------------------------------------------------------------ util
 
@@ -599,11 +699,12 @@ class DeepFMEstimator:
         mesh): what ``save`` writes and the ``Predictor`` serves."""
         return self._full(self.params)
 
-    def _forward_fn(self) -> ForwardFn:
+    @property
+    def forward_fn(self) -> ForwardFn:
         """``model_forward`` with, on a mesh, the exchange's lookup bound and
-        a QAT tower's activation abs-max taken over the batch's ranks. The
-        same function while these stay, so that the scanned eval keeps its
-        graphs."""
+        a QAT tower's activation abs-max taken over the batch's ranks (the
+        JAX estimator's ``forward_fn``). The same function while these stay,
+        so that the eval fns keep their graphs."""
         fwd = type(self).model_forward
         key = (fwd, self._lookup_fn, self.mesh, self._batch_axes(), self.mcfg.quantization_aware)
         if self._fwd is None or self._fwd[0] != key:
@@ -614,6 +715,25 @@ class DeepFMEstimator:
                 kw["amax_fn"] = self._batch_group().max
             self._fwd = (key, partial(fwd, **kw) if kw else fwd)
         return self._fwd[1]
+
+    @property
+    def eval_fn(self) -> EvalFn:
+        """One eval batch a dispatch (:func:`make_eval_fn`) over
+        :attr:`forward_fn`, kept while that stays."""
+        fwd = self.forward_fn
+        if self._eval_fn is None or self._eval_fn.forward_fn is not fwd:
+            self._eval_fn = make_eval_fn(self.mcfg, fwd, mesh=self.mesh, axes=self._batch_axes())
+        return self._eval_fn
+
+    @property
+    def scan_eval_fn(self) -> ScanEval:
+        """``EVAL_SCAN_K`` eval batches a dispatch (:func:`make_scan_eval_fn`)
+        over :attr:`forward_fn`, kept while that stays."""
+        fwd = self.forward_fn
+        if self._scan_eval is None or self._scan_eval.forward_fn is not fwd:
+            self._scan_eval = make_scan_eval_fn(self.mcfg, fwd, mesh=self.mesh,
+                                                axes=self._batch_axes())
+        return self._scan_eval
 
     def _reducer(self) -> Callable[[List[torch.Tensor]], None]:
         """The gradient reduction of this rank's sharded step: each leaf summed
@@ -664,6 +784,13 @@ class DeepFMEstimator:
 
         ``keep_best``: keep host copies of the params at the epoch of the best
         valid AUC in ``self.best_params`` / ``self.best_epoch``.
+
+        At the default ``steps_per_call=1`` each batch is one call of
+        :func:`make_train_step` and each refresh one of :class:`PruneRefresh`,
+        as the JAX ``fit`` calls its jitted step and ``prune_params``: on the
+        card one CUDA graph replay each (over NCCL on a mesh; over gloo eager).
+        Inside ``utils.debug.nan_debugging`` they run eagerly, each loss
+        checked as it comes.
 
         ``steps_per_call > 1`` steps K batches a dispatch through
         :func:`make_multi_step`, as the JAX ``fit`` does (``:464-560``): K is
@@ -720,7 +847,7 @@ class DeepFMEstimator:
                     f"batch_size {tc.batch_size} not divisible by the {n_shards} batch shards of "
                     f"mesh (data={mesh.data}, model={mesh.model}) with "
                     f"exchange={self._exchange()!r}")
-        forward_fn = self._forward_fn()
+        forward_fn = self.forward_fn
         counts = deepfwfm.param_group_counts(self.params, self.mcfg)
         self._log("========")
         self._log(f"Summation of feature sizes: {sum(self.mcfg.feature_sizes):,}")
@@ -752,12 +879,25 @@ class DeepFMEstimator:
             if self._table_shards > 1:
                 prune_kw.update(mesh=mesh, table_axes=self._table_axes,
                                 dense_rows=type(self).model_spec(self.mcfg).dense_rows)
+        step_kw = dict(use_kd=teacher_model is not None, forward_fn=forward_fn, mesh=mesh,
+                       reduce=reduce, group=group)
         if k_steps > 1:
-            multi_kw = dict(use_kd=teacher_model is not None, forward_fn=forward_fn, mesh=mesh,
-                            reduce=reduce, group=group)
-            multi_step = make_multi_step(self.mcfg, tc, optimizer, **multi_kw)
-            multi_prune = (make_multi_step(self.mcfg, tc, optimizer, prune_kw=prune_kw, **multi_kw)
+            multi_step = make_multi_step(self.mcfg, tc, optimizer, **step_kw)
+            multi_prune = (make_multi_step(self.mcfg, tc, optimizer, prune_kw=prune_kw, **step_kw)
                            if fuse_prune else None)
+        elif debug.finite_checks_enabled():
+            # nan_debugging asks for every step's loss to be checked as it comes, under
+            # autograd's anomaly detection (as jax_debug_nans makes JAX run op by op): the
+            # steps and refreshes run eagerly, the one eager route on the card
+            def one_step(params, opt_state, batch, generator):
+                return train_step(params, opt_state, batch, self.mcfg, tc, optimizer,
+                                  reduce=reduce, generator=generator,
+                                  teacher_logits=batch.get("teacher"), forward_fn=forward_fn,
+                                  group=group)
+            refresh = partial(prune_params_, **prune_kw)
+        else:               # one graph replay a step, and one a refresh, on the card
+            one_step = make_train_step(self.mcfg, tc, optimizer, **step_kw)
+            refresh = PruneRefresh(prune_kw, mesh)
         n_iter = 0
         self.train_result, self.valid_result = [], []
         # total sparsity % per epoch, parallel to train_result / valid_result
@@ -802,10 +942,8 @@ class DeepFMEstimator:
                         n_iter += 1
                     # the loss stays on the device: reading it here would make the host
                     # wait for every step. It is fetched once, at the end of the epoch
-                    epoch_losses.append(train_step(
-                        self.params, self.opt_state, batch, self.mcfg, tc, optimizer, reduce=reduce,
-                        generator=step_generator, teacher_logits=batch.get("teacher"),
-                        forward_fn=forward_fn, group=group))
+                    epoch_losses.append(one_step(self.params, self.opt_state, batch,
+                                                 step_generator))
                     if debug.finite_checks_enabled():
                         debug.require_finite(epoch_losses[-1], f"the loss of step {self._step}")
                     self._step += 1
@@ -815,7 +953,7 @@ class DeepFMEstimator:
                     is_last = (i_batch + 1) * tc.batch_size >= n_train
                     if do_prune and epoch >= tc.warm and (
                             is_last or i_batch % tc.prune_interval == tc.prune_interval - 1):
-                        prune_params_(self.params, tc.adaptive_sparse(n_iter), **prune_kw)
+                        refresh(self.params, tc.adaptive_sparse(n_iter))
 
             if epoch_losses:   # the epoch's one read of the losses
                 losses = torch.cat([l.reshape(-1) for l in epoch_losses])
@@ -878,27 +1016,26 @@ class DeepFMEstimator:
                         batch_size: Optional[int] = None) -> np.ndarray:
         """Batched eval-mode forward with a padded tail → logits on the host.
         Every batch is issued before the one copy back. The full groups of
-        ``EVAL_SCAN_K`` batches go through the scanned eval (one CUDA graph
-        replay each on the card, over NCCL on a mesh), the rest batch by
-        batch, as the JAX package's (``:696-726``). On a mesh the batch is
-        rounded up to the shard count, each rank runs its rows, and the
-        logits are gathered, so every rank returns them all."""
+        ``EVAL_SCAN_K`` batches go through the scanned eval, the rest batch
+        by batch through the eval fn, the tail padded to ``bs``, as the JAX
+        package's (``:696-726``): on the card each a CUDA graph replay (over
+        NCCL on a mesh). On a mesh the batch is rounded up to the shard
+        count, each rank runs its rows, and the logits are gathered, so every
+        rank returns them all."""
         bs = batch_size or (self.tcfg.eval_batch_size * (2 if self.mcfg.use_ffm else 1))
         n_shards = self._n_batch_shards()
         bs = -(-bs // n_shards) * n_shards
         Xi = np.asarray(Xi, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
         Xv = np.asarray(Xv, dtype=np.float32).reshape(Xi.shape[0], -1)
-        forward_fn = self._forward_fn()
         axes = self._batch_axes()
         rows = slice(None) if self.mesh is None else mesh_mod.batch_rows(self.mesh, axes, bs)
         k = EVAL_SCAN_K
         pos = Xi.shape[0] // (k * bs) * (k * bs)
-        if self._scan_eval is None or self._scan_eval.forward_fn is not forward_fn:
-            self._scan_eval = make_scan_eval_fn(self.mcfg, forward_fn, mesh=self.mesh, axes=axes)
+        scan_eval, eval_fn = self.scan_eval_fn, self.eval_fn
         groups = ({"xi": Xi[lo:lo + k * bs].reshape(k, bs, -1)[:, rows],
                    "xv": Xv[lo:lo + k * bs].reshape(k, bs, -1)[:, rows]}
                   for lo in range(0, pos, k * bs))
-        out = [self._scan_eval(self.params, group["xi"], group["xv"]).reshape(-1)
+        out = [scan_eval(self.params, group["xi"], group["xv"]).reshape(-1)
                for group in batching.prefetch_to_device(groups, self.device)]
         Xi, Xv = Xi[pos:], Xv[pos:]
         dummy_y = np.zeros(Xi.shape[0], dtype=np.float32)
@@ -906,10 +1043,7 @@ class DeepFMEstimator:
         if self.mesh is not None:
             batches = (mesh_mod.shard_batch(b, self.mesh, axes, bs) for b in batches)
         for batch in batching.prefetch_to_device(batches, self.device):
-            logits = forward_fn(self.params, batch["xi"], batch["xv"], self.mcfg)
-            if self.mesh is not None:
-                logits = self.mesh.all_gather(logits, axes).reshape(-1)
-            out.append(logits[:batch["n_valid"]])
+            out.append(eval_fn(self.params, batch["xi"], batch["xv"])[:batch["n_valid"]])
         return torch.cat(out).cpu().numpy() if out else np.zeros((0,), np.float32)
 
     def eval_by_batch(self, Xi, Xv, y) -> Tuple[float, float, float, float]:
@@ -983,6 +1117,9 @@ class DeepFMEstimator:
         int8 model first (reference ``:751-755, :968-971``). ``cuda`` is
         accepted for API compatibility and ignored. A sharded model is
         gathered first and served whole on each rank."""
+        # here, as the JAX package imports them: serving.benchmark imports this package
+        from ..serving.benchmark import run_benchmark
+        from ..serving.predictor import Predictor
         params = self.gather_params()
         if quantization_aware or self.mcfg.quantization_aware:
             predictor = Predictor(convert(params, self.mcfg, mode="qat"), device=self.device)
