@@ -90,10 +90,10 @@ Phases, each printed on its own line:
      the dropout masks of K graphed steps equal to K eager steps' from the same generator;
      fit on the flagship for an epoch of 64 steps with steps_per_call=10, pruning and
      dropout on (six replays and a short group of four eager steps) against
-     steps_per_call=1 from the same state and generator: the first loss equal, sparsity
-     within two parameters, and under torch's deterministic algorithms every parameter
-     within STEP_TOL (beside it the spread of two fits at steps_per_call=1 with the card's
-     atomic scatter-add); ms a train step graphed and eager; the pipeline leg at 1M rows with
+     steps_per_call=1 from the same state and generator: the first loss equal, and under
+     torch's deterministic algorithms the same non-zero count and every parameter within
+     STEP_TOL (beside it the spread of values and non-zero counts of two fits at
+     steps_per_call=1 with the card's atomic scatter-add); ms a train step graphed and eager; the pipeline leg at 1M rows with
      --k-steps 8 against --k-steps 1.
  21. the compiled timers: run_benchmark on the flagship in fp32 and dynamic int8 at B=8192
      and tools.pruned_serving_bench at B=8192 and B=1 (7 arms), every timer through CUDA
@@ -2355,14 +2355,19 @@ def dispatch_phase(args, cfg, card: str) -> dict:
     check(g_fit._step == e_fit._step == TRAIN_BATCHES, "steps of the two fits")
     first_gap = abs(g_fit.last_epoch_losses[0] - e_fit.last_epoch_losses[0])
     check(first_gap <= 1e-6, f"the first step's loss differs by {first_gap} (masks or state)")
-    nz = [deepfwfm.nonzero_param_count(x.params) for x in (g_fit, e_fit)]
-    check(abs(nz[0] - nz[1]) <= 2, f"non-zero parameters {nz[0]} graphed, {nz[1]} eager")
+    # the refreshes' thresholds follow the parted values, so the non-zero counts of these fits
+    # part too (by 0 to 3 in three runs); they are read here and held under deterministic
+    # algorithms below, where the two forms must prune the same parameters
+    nz = [deepfwfm.nonzero_param_count(x.params) for x in (g_fit, e_fit, e2_fit)]
     share, far = within_step_tol(g_fit.params, e_fit.params)
     share_ee, far_ee = within_step_tol(e2_fit.params, e_fit.params)
     with deterministic():
         gd_fit, _, det_replays = fit(DISPATCH_FIT_K)
         ed_fit, _, _ = fit(1)
     check(det_replays == n_groups, f"{det_replays} deterministic multi-step replays")
+    nz_d = [deepfwfm.nonzero_param_count(x.params) for x in (gd_fit, ed_fit)]
+    check(nz_d[0] == nz_d[1], f"under deterministic algorithms non-zero parameters {nz_d[0]} "
+                              f"at K={DISPATCH_FIT_K}, {nz_d[1]} at K=1")
     share_d, far_d = within_step_tol(gd_fit.params, ed_fit.params)
     bitwise_d = all(torch.equal(a, w) for a, w in zip(_tree.leaves(gd_fit.params),
                                                       _tree.leaves(ed_fit.params)))
@@ -2375,10 +2380,11 @@ def dispatch_phase(args, cfg, card: str) -> dict:
                  f"eager steps) {g_s:.3f} s (capture included) | steps_per_call=1 {e_s:.3f} s; "
                  f"first loss {g_fit.last_epoch_losses[0]:.6f} vs "
                  f"{e_fit.last_epoch_losses[0]:.6f}, every loss within {loss_gap:.1e}, "
-                 f"non-zeros {nz[0]} vs {nz[1]}; within STEP_TOL: K={DISPATCH_FIT_K} vs K=1 "
-                 f"{share:.6f} (furthest {far:.3e}), two K=1 fits {share_ee:.6f} (furthest "
+                 f"non-zeros {nz[0]} vs {nz[1]} (a second K=1 fit {nz[2]}); within STEP_TOL: "
+                 f"K={DISPATCH_FIT_K} vs K=1 {share:.6f} (furthest {far:.3e}), two K=1 fits {share_ee:.6f} (furthest "
                  f"{far_ee:.3e}); under deterministic algorithms K={DISPATCH_FIT_K} vs K=1 "
-                 f"{share_d:.6f} (furthest {far_d:.3e}, bit for bit: {bitwise_d})")
+                 f"{share_d:.6f} (furthest {far_d:.3e}, bit for bit: {bitwise_d}), non-zeros "
+                 f"{nz_d[0]} vs {nz_d[1]}")
     del g_fit, e_fit, e2_fit, gd_fit, ed_fit
 
     # ms a train step, graphed (10 steps and the refresh a replay) against eager
