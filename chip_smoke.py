@@ -39,7 +39,8 @@ Phases, each printed on its own line:
      card, and the reloaded model's logits equal the port's CPU forward of the checkpoint
  14. cli.quantization.main on the pruned checkpoint, dynamic and static: the fused tower
      kernel launches during the dynamic benchmark and in no other; the saved artifacts load
-     back through load_quantized with identical logits
+     back through load_quantized with identical logits; calibrate's 5 batches are 5 graph
+     replays, its scales equal to the eager calibrate's on the same rows bit for bit
  15. compaction of the structured-pruned model, fp32 and int8, with and without row
      compaction: Predictor(CompactModel) at B=8192 against the dense forward on the card and
      against the CPU's compact_forward; the report; request times dense against compact
@@ -62,8 +63,9 @@ Phases, each printed on its own line:
      a2a_grid and a pruned leg (a refresh every 10 steps), and on four cards also a2a, psum,
      KD and QAT: the first loss equal, sparsity within two parameters, every value within
      STEP_TOL, the fits' collectives equal, the form fit's mesh line names; the scanned eval
-     on the mesh equal to per-batch forwards. On four cards (NCCL) a full group is one CUDA
-     graph replay on every rank (two a fit, else the phase fails), and 10 steps and a refresh
+     on the mesh equal to per-batch forwards. On four cards (NCCL) a group is one CUDA
+     graph replay on every rank, the short last group too (three a fit), and a step of the
+     steps_per_call=1 fit one replay (24 a fit), else the phase fails; 10 steps and a refresh
      as one replay against the same run eagerly give ms a sharded step in both forms beside
      one rank's, with equal bytes; on one card the gloo ranks run the groups eagerly. On four
      cards, also cli.main_all, cli.kd and cli.quantization -quantization_aware 1 under
@@ -89,12 +91,16 @@ Phases, each printed on its own line:
      logits within 1e-6; _predict_logits' scanned groups against per-batch forwards, equal;
      the dropout masks of K graphed steps equal to K eager steps' from the same generator;
      fit on the flagship for an epoch of 64 steps with steps_per_call=10, pruning and
-     dropout on (six replays and a short group of four eager steps) against
-     steps_per_call=1 from the same state and generator: the first loss equal, and under
-     torch's deterministic algorithms the same non-zero count and every parameter within
-     STEP_TOL (beside it the spread of values and non-zero counts of two fits at
-     steps_per_call=1 with the card's atomic scatter-add); ms a train step graphed and eager; the pipeline leg at 1M rows with
-     --k-steps 8 against --k-steps 1.
+     dropout on (seven replays, six full groups and the tail group of four real steps, and
+     no group run eagerly) against steps_per_call=1 from the same state and generator: the
+     first loss equal, and under torch's deterministic algorithms the same non-zero count
+     and every parameter equal bit for bit, also to the fit with its tail group eager
+     (beside it the spread of values and non-zero counts of two fits at steps_per_call=1
+     with the card's atomic scatter-add), and the peak allocated memory of the three fits;
+     ms a train step graphed and eager; the tail group as one replay against eager; the
+     pipeline leg at 1M rows with --k-steps 8, --k-steps 1 (one make_train_step replay a
+     step, counted, and the rows trained on equal to a second host pass) and --k-steps 1
+     eager.
  21. the compiled timers: run_benchmark on the flagship in fp32 and dynamic int8 at B=8192
      and tools.pruned_serving_bench at B=8192 and B=1 (7 arms), every timer through CUDA
      graph replays (marginal_timeit, scan_timeit and the Predictor's replay): inside each
@@ -114,8 +120,13 @@ Phases, each printed on its own line:
      cli.quantization -dynamic_quantization 1 -quantization_aware 1 at its defaults on
      tiny-criteo: the QAT fit's steps replayed, the fused tower launched in the dynamic
      benchmark and equal to its plain version.
+ 23. the last compiled forms: HashMLPBaseline at its default width (hash_dim 2048, hidden
+     (256, 128), B=1024) on seeded rows at the full-Criteo cardinalities, 2 epochs of 24
+     steps: graphed and eager fits in turns under deterministic algorithms, parameters and
+     losses equal bit for bit, one replay a step (counted); the test AUC within 1e-5 of the
+     CPU port's fit; ms a step graphed and eager by the host clock and device time.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17, 18, 19, 20, 21, 22 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17 to 23 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -148,7 +159,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21), (22, 22))
+                (21, 21), (22, 22), (23, 23))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
@@ -717,6 +728,7 @@ def deploy_phases(args, cfg, card: str) -> dict:
 
     from xsdeepfwfm_deprecated_torch import _tree
     from xsdeepfwfm_deprecated_torch.cli import kd, main_all, nfm, quantization
+    from xsdeepfwfm_deprecated_torch.compression import quantization as q_mod
     from xsdeepfwfm_deprecated_torch.compression.quantization import QuantizedModel
     from xsdeepfwfm_deprecated_torch.data import get_dataset, native_loader, readers
     from xsdeepfwfm_deprecated_torch.models import deepfwfm
@@ -831,12 +843,36 @@ def deploy_phases(args, cfg, card: str) -> dict:
               f"{tiny.benchmark['auc']:.6f}; dead units a layer after the pruned epoch: "
               + ", ".join(f"{d:.3f}" for d in dead) + f" (schedule {target:.3f}) {where}")
 
-        # ---- 14. cli.quantization on the pruned checkpoint
+        # ---- 14. cli.quantization on the pruned checkpoint; calibrate's replays counted, its
+        # scales held to the eager calibrate's on the same rows
+        calls = []
+        calibrate = q_mod.calibrate
+
+        def recorded(*a, **kw):
+            calls.append((a, kw, calibrate(*a, **kw)))
+            return calls[-1][2]
+        q_mod.calibrate = recorded
         t0 = time.perf_counter()
-        q = quantization.main(["-dataset", "criteo", "-prune", "1", "-save_model_path",
-                               pruned.save_model_name, "-dynamic_quantization", "1",
-                               "-static_quantization", "1", *FLAGSHIP_FLAGS], data_dir=tmp.name)
+        try:
+            with counting_replays() as replays:
+                q = quantization.main(["-dataset", "criteo", "-prune", "1", "-save_model_path",
+                                       pruned.save_model_name, "-dynamic_quantization", "1",
+                                       "-static_quantization", "1", *FLAGSHIP_FLAGS],
+                                      data_dir=tmp.name)
+        finally:
+            q_mod.calibrate = calibrate
         quant_s = time.perf_counter() - t0
+        check(len(calls) == 1 and replays["calibrate"] == calls[0][1]["n_batches"] == 5,
+              f"calibrate: {len(calls)} calls, {replays['calibrate']} replays for 5 batches")
+        (cal_args, cal_kw, cal_graphed), = calls
+        with eager_forms():
+            cal_eager = calibrate(*cal_args, **cal_kw)
+        cal_scales = list(zip(_tree.leaves(cal_graphed), _tree.leaves(cal_eager)))
+        cal_same = all(torch.equal(a, w) for a, w in cal_scales)
+        check(cal_same and q["static"]["model"].act_scales is cal_graphed,
+              "calibrate's replays differ from the eager calibrate on the same rows")
+        cal_rows = cal_kw["batch_size"]
+        del cal_args, cal_kw, calls
         cli_launches = int8_mlp.launches
         check(q["dynamic"]["tower_launches"] > 0 and q["dynamic"]["tower_launches"] == cli_launches,
               f"the dynamic benchmark launched the fused tower {q['dynamic']['tower_launches']} "
@@ -858,7 +894,10 @@ def deploy_phases(args, cfg, card: str) -> dict:
         cli_launches = int8_mlp.launches     # the two dynamic Predictors above launched too
         phase(14, f"cli.quantization on the pruned checkpoint ({quant_s:.1f} s): fused tower "
                   f"launches {q['dynamic']['tower_launches']} in the dynamic benchmark, 0 in the "
-                  f"original and the static one; artifacts load back with identical logits {where}")
+                  f"original and the static one; artifacts load back with identical logits; "
+                  f"calibrate {replays['calibrate']} replays of {cal_rows}-row batches, its "
+                  f"{len(cal_scales)} scales equal the eager calibrate's bit for bit: "
+                  f"{cal_same} {where}")
         for mode in ("original", "dynamic", "static"):
             b = q[mode]["benchmark"]
             print(f"  {mode}: AUC {b['auc']:.6f}, loss {b['loss']:.6f}; B=8192 {b['batch_ms']:.3f} ms "
@@ -1281,7 +1320,6 @@ def grouped_rank(rank: int, device, seed: int, cfg, mesh, teacher_params, quiet,
     from xsdeepfwfm_deprecated_torch.cli.kd import STUDENT_DEEP_NODES, STUDENT_H_DEPTH
     from xsdeepfwfm_deprecated_torch.models import deepfwfm
     from xsdeepfwfm_deprecated_torch.train import trainer
-    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
 
     b = TRAIN_BATCH
     xi, xv, y = make_training_rows(cfg, seed + 32, GROUP_STEPS * b)
@@ -1302,7 +1340,6 @@ def grouped_rank(rank: int, device, seed: int, cfg, mesh, teacher_params, quiet,
     logger = logging.getLogger(f"chip_smoke.grouped{rank}")
     logger.handlers, logger.propagate = [lines], False
     logger.setLevel(logging.INFO)
-    replay = cuda_graph.Graphed.replay
     out = {}
     for leg, (leg_cfg, exchange, extra, leg_teacher) in legs.items():
         t_leg = time.perf_counter()
@@ -1314,43 +1351,32 @@ def grouped_rank(rank: int, device, seed: int, cfg, mesh, teacher_params, quiet,
                 est = fits[k] = trainer.DeepFMEstimator(leg_cfg, tc, logger=logger,
                                                         device=device)
                 est.mesh = mesh
-                replays = []
-
-                def counted_replay(graph):
-                    replays.append(graph.name)
-                    return replay(graph)
-                cuda_graph.Graphed.replay = counted_replay
                 mesh.traffic.clear()
                 sync()
                 t0 = time.perf_counter()
-                try:
+                with counting_replays() as replays:
                     est.fit(xi, xv, y, teacher_model=leg_teacher)
                     sync()
-                finally:
-                    cuda_graph.Graphed.replay = replay
                 res[k] = dict(fit_s=time.perf_counter() - t0, losses=est.last_epoch_losses,
                               traffic=list(mesh.traffic),
                               mesh_line=lines.lines.pop() if lines.lines else "",
-                              step_replays=sum("make_multi_step" in r for r in replays),
+                              step_replays=named(replays, "make_multi_step"),
+                              train_replays=named(replays, "make_train_step"),
                               nonzero=deepfwfm.nonzero_param_count(est.gather_params()))
         res["share"], res["far"] = within_step_tol(fits[GROUP_K].params, fits[1].params)
         est = fits[GROUP_K]
         del fits
         if leg == "a2a_grid":    # eight scanned batches, then a tail, against every batch alone
             n_eval = trainer.EVAL_SCAN_K * b + 1000
-            replays = []
-            cuda_graph.Graphed.replay = counted_replay
-            try:
+            with counting_replays() as replays:
                 scanned = est._predict_logits(xi[:n_eval], xv[:n_eval], batch_size=b)
-            finally:
-                cuda_graph.Graphed.replay = replay
             scan_k, trainer.EVAL_SCAN_K = trainer.EVAL_SCAN_K, 10 ** 9
             try:
                 per_batch = est._predict_logits(xi[:n_eval], xv[:n_eval], batch_size=b)
             finally:
                 trainer.EVAL_SCAN_K = scan_k
             res["eval"] = dict(rows=n_eval, diff=float(np.abs(scanned - per_batch).max()),
-                               replays=sum("make_scan_eval_fn" in r for r in replays))
+                               replays=named(replays, "make_scan_eval_fn"))
         if mesh.capturable and leg != "pruned":
             res.update(graphed_against_eager(est, leg_cfg, xi, xv, y, leg_teacher, seed, to_dev,
                                              profile))
@@ -1507,12 +1533,14 @@ def nvlink_rate():
 def grouped_checks(results: list, backend: str, one_group_ms: dict, where: str) -> None:
     """Phase 17's lines and checks of the grouped fits (``grouped_rank``):
     every leg's fit at steps_per_call=GROUP_K against 1 on the same mesh, its
-    replays (one a full group over NCCL, none over gloo, where the groups run
-    eagerly), and over NCCL ms a step graphed against eager beside one rank's."""
+    replays (over NCCL one a group, the short last group too, and one a step
+    at steps_per_call=1; none over gloo, where the steps run eagerly), and
+    over NCCL ms a step graphed against eager beside one rank's."""
     r0 = results[0]["grouped"]
     graphed = backend == "nccl"
     nvlink_gbs = nvlink_rate() if graphed else None
     full_groups = GROUP_STEPS // GROUP_K
+    groups = -(-GROUP_STEPS // GROUP_K)
     form = f"{GROUP_K} steps a replay" if graphed else f"{GROUP_K} steps eager a group"
     print(f"  grouped fits: {GROUP_STEPS} global batches of {TRAIN_BATCH} at steps_per_call="
           f"{GROUP_K} against 1 on the same mesh, under deterministic algorithms, the pruned leg "
@@ -1526,9 +1554,12 @@ def grouped_checks(results: list, backend: str, one_group_ms: dict, where: str) 
         same_traffic = all(r["grouped"][leg][GROUP_K]["traffic"] == r["grouped"][leg][1]["traffic"]
                            for r in results)
         replays = [r["grouped"][leg][GROUP_K]["step_replays"] for r in results]
+        single_replays = [r["grouped"][leg][1]["train_replays"] for r in results]
         first_gap = abs(grouped["losses"][0] - single["losses"][0])
         line = (f"  {leg} ({res['exchange']}): {replays[0]} multi-step replays on each rank for "
-                f"{full_groups} full groups; first loss {grouped['losses'][0]:.6f} vs "
+                f"{full_groups} full groups and a group of {GROUP_STEPS % GROUP_K}, "
+                f"{single_replays[0]} train-step replays on each rank at steps_per_call=1 for "
+                f"{GROUP_STEPS} steps; first loss {grouped['losses'][0]:.6f} vs "
                 f"{single['losses'][0]:.6f}; non-zeros {grouped['nonzero']} vs "
                 f"{single['nonzero']}; within STEP_TOL {share:.6f} of the values on every rank "
                 f"(furthest {far:.3e}); the fits' collectives equal: {same_traffic}; fit "
@@ -1557,8 +1588,10 @@ def grouped_checks(results: list, backend: str, one_group_ms: dict, where: str) 
                                                       for key, ms, n in top) + f" {where}")
         check(form in grouped["mesh_line"] and form not in single["mesh_line"],
               f"{leg}: fit's mesh line names another form than {form!r}: {grouped['mesh_line']}")
-        check(replays == [full_groups if graphed else 0] * len(results),
-              f"{leg}: {replays} multi-step replays for {full_groups} full groups over {backend}")
+        check(replays == [groups if graphed else 0] * len(results),
+              f"{leg}: {replays} multi-step replays for {groups} groups over {backend}")
+        check(single_replays == [GROUP_STEPS if graphed else 0] * len(results),
+              f"{leg}: {single_replays} train-step replays for {GROUP_STEPS} steps over {backend}")
         check(first_gap <= 1e-6, f"{leg}: the first loss differs by {first_gap}")
         check(abs(grouped["nonzero"] - single["nonzero"]) <= 2,
               f"{leg}: non-zeros {grouped['nonzero']} grouped, {single['nonzero']} per batch")
@@ -2164,6 +2197,41 @@ DISPATCH_REPS = 50      # host-clock calls of a Predictor form in each turn
 GRAPH_TOL = 1e-6        # graphed against eager logits: the same kernels on the same inputs
 
 
+@contextlib.contextmanager
+def counting_replays():
+    """Every CUDA graph replay inside the block, counted by the graph's name."""
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+    seen = collections.Counter()
+    replay = cuda_graph.Graphed.replay
+
+    def counted(self):
+        seen[self.name] += 1
+        return replay(self)
+    cuda_graph.Graphed.replay = counted
+    try:
+        yield seen
+    finally:
+        cuda_graph.Graphed.replay = replay
+
+
+def named(replays: collections.Counter, function: str) -> int:
+    """The replays of ``counting_replays`` of the graphs of ``function``."""
+    return sum(n for name, n in replays.items() if function in name)
+
+
+@contextlib.contextmanager
+def eager_forms():
+    """Inside the block the port captures nothing, on the card too: each
+    graphed form runs as the eager form it replaces."""
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+    on_card = cuda_graph.on_card
+    cuda_graph.on_card = lambda device: False
+    try:
+        yield
+    finally:
+        cuda_graph.on_card = on_card
+
+
 def in_turns(fn_a, fn_b, iters: int):
     """Median host-clock ms of two forms, timed a, b, b, a; the mean of each
     form's two medians."""
@@ -2223,6 +2291,7 @@ def dispatch_phase(args, cfg, card: str) -> dict:
     from xsdeepfwfm_deprecated_torch.compression import pruning
     from xsdeepfwfm_deprecated_torch.compression.quantization import convert
     from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.data.sharded_input import ShardedBinPipeline
     from xsdeepfwfm_deprecated_torch.entry import flagship_train_config
     from xsdeepfwfm_deprecated_torch.models import deepfwfm
     from xsdeepfwfm_deprecated_torch.ops import mlp as mlp_ops
@@ -2326,32 +2395,55 @@ def dispatch_phase(args, cfg, card: str) -> dict:
     xi_f, xv_f, y_f = make_training_rows(cfg, args.seed + 10, TRAIN_BATCH * TRAIN_BATCHES)
     tc = flagship_train_config(n_epochs=1, batch_size=TRAIN_BATCH, prune=True, warm=0,
                                sparse=0.9, random_seed=args.seed, eval_train_rows=BATCH)
-    replay = cuda_graph.Graphed.replay
+    steps_run, init = trainer.MultiStep._steps, cuda_graph.Graphed.__init__
+    call = trainer.MultiStep.__call__
 
-    def fit(k: int):
-        """(estimator, seconds, multi-step replays) of one epoch at steps_per_call=k."""
+    def tail_eager(self, *a, k_real=None, **kw):
+        """The parent's form of a group with padding steps: its steps eager."""
+        with eager_forms() if k_real is not None and k_real < a[2].shape[0] \
+                else contextlib.nullcontext():
+            return call(self, *a, k_real=k_real, **kw)
+
+    def fit(k: int, eager_tail: bool = False):
+        """One epoch at steps_per_call=k: (estimator, seconds, multi-step replays, groups or
+        steps run eagerly, peak allocated GB above what was live before it)."""
         est_k = trainer.DeepFMEstimator(cfg, dataclasses.replace(tc, steps_per_call=k),
                                         logger=quiet)
-        replays = []
+        making, eager = [False], [0]
 
-        def counted_replay(self):
-            replays.append(self.name)
-            return replay(self)
-        cuda_graph.Graphed.replay = counted_replay
+        def counted_steps(self, *a):        # outside a graph's warm-up and capture: eager
+            eager[0] += not making[0]
+            return steps_run(self, *a)
+
+        def marked_init(self, *a, **kw):
+            making[0] = True
+            try:
+                init(self, *a, **kw)
+            finally:
+                making[0] = False
+        trainer.MultiStep._steps, cuda_graph.Graphed.__init__ = counted_steps, marked_init
+        if eager_tail:
+            trainer.MultiStep.__call__ = tail_eager
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         try:
-            est_k.fit(xi_f, xv_f, y_f)
-            torch.cuda.synchronize()
+            with counting_replays() as replays:
+                est_k.fit(xi_f, xv_f, y_f)
+                torch.cuda.synchronize()
         finally:
-            cuda_graph.Graphed.replay = replay
-        return est_k, time.perf_counter() - t0, sum("make_multi_step" in r for r in replays)
+            trainer.MultiStep._steps, cuda_graph.Graphed.__init__ = steps_run, init
+            trainer.MultiStep.__call__ = call
+        peak = (torch.cuda.max_memory_allocated() - live) / 1e9
+        return est_k, time.perf_counter() - t0, named(replays, "make_multi_step"), eager[0], peak
 
-    n_groups = TRAIN_BATCHES // DISPATCH_FIT_K
-    g_fit, g_s, step_replays = fit(DISPATCH_FIT_K)
-    e_fit, e_s, _ = fit(1)
-    e2_fit, _, _ = fit(1)
-    check(step_replays == n_groups, f"{step_replays} multi-step replays for {n_groups} full groups")
+    n_groups = -(-TRAIN_BATCHES // DISPATCH_FIT_K)     # six full groups and a tail of four
+    g_fit, g_s, step_replays, g_eager, _ = fit(DISPATCH_FIT_K)
+    e_fit, e_s, _, _, _ = fit(1)
+    e2_fit, _, _, _, _ = fit(1)
+    check(step_replays == n_groups and g_eager == 0,
+          f"{step_replays} multi-step replays for {n_groups} groups, {g_eager} groups eager")
     check(g_fit._step == e_fit._step == TRAIN_BATCHES, "steps of the two fits")
     first_gap = abs(g_fit.last_epoch_losses[0] - e_fit.last_epoch_losses[0])
     check(first_gap <= 1e-6, f"the first step's loss differs by {first_gap} (masks or state)")
@@ -2361,31 +2453,43 @@ def dispatch_phase(args, cfg, card: str) -> dict:
     nz = [deepfwfm.nonzero_param_count(x.params) for x in (g_fit, e_fit, e2_fit)]
     share, far = within_step_tol(g_fit.params, e_fit.params)
     share_ee, far_ee = within_step_tol(e2_fit.params, e_fit.params)
+    first = (g_fit.last_epoch_losses[0], e_fit.last_epoch_losses[0])
+    loss_gap = float(np.abs(np.subtract(g_fit.last_epoch_losses, e_fit.last_epoch_losses)).max())
+    del g_fit, e_fit, e2_fit
     with deterministic():
-        gd_fit, _, det_replays = fit(DISPATCH_FIT_K)
-        ed_fit, _, _ = fit(1)
-    check(det_replays == n_groups, f"{det_replays} deterministic multi-step replays")
+        gd_fit, _, det_replays, gd_eager, gd_peak = fit(DISPATCH_FIT_K)
+        ed_fit, _, _, ed_eager, ed_peak = fit(1)
+        td_fit, _, td_replays, td_eager, td_peak = fit(DISPATCH_FIT_K, eager_tail=True)
+    check(det_replays == n_groups and gd_eager == ed_eager == 0,
+          f"{det_replays} deterministic multi-step replays, {gd_eager} and {ed_eager} eager")
+    check(td_replays == n_groups - 1 and td_eager == 1, f"the tail-eager fit: {td_replays} "
+                                                        f"replays, {td_eager} groups eager")
     nz_d = [deepfwfm.nonzero_param_count(x.params) for x in (gd_fit, ed_fit)]
     check(nz_d[0] == nz_d[1], f"under deterministic algorithms non-zero parameters {nz_d[0]} "
                               f"at K={DISPATCH_FIT_K}, {nz_d[1]} at K=1")
     share_d, far_d = within_step_tol(gd_fit.params, ed_fit.params)
     bitwise_d = all(torch.equal(a, w) for a, w in zip(_tree.leaves(gd_fit.params),
                                                       _tree.leaves(ed_fit.params)))
-    check(share_d == 1.0, f"deterministic graphed fit: {share_d} of the values within "
-                          f"{STEP_TOL}, furthest {far_d}")
-    loss_gap = float(np.abs(np.subtract(g_fit.last_epoch_losses, e_fit.last_epoch_losses)).max())
+    bitwise_t = all(torch.equal(a, w) for a, w in zip(_tree.leaves(gd_fit.params),
+                                                      _tree.leaves(td_fit.params)))
+    check(share_d == 1.0 and bitwise_d and bitwise_t,
+          f"deterministic graphed fit: {share_d} of the values within {STEP_TOL}, furthest "
+          f"{far_d}; bit for bit against K=1 {bitwise_d}, against the tail eager {bitwise_t}")
     lines.append(f"  fit, one epoch of {TRAIN_BATCHES} x {TRAIN_BATCH}, pruned every "
                  f"{tc.prune_interval} steps, dropout on: steps_per_call={DISPATCH_FIT_K} "
-                 f"({step_replays} graph replays and a group of {TRAIN_BATCHES % DISPATCH_FIT_K} "
-                 f"eager steps) {g_s:.3f} s (capture included) | steps_per_call=1 {e_s:.3f} s; "
-                 f"first loss {g_fit.last_epoch_losses[0]:.6f} vs "
-                 f"{e_fit.last_epoch_losses[0]:.6f}, every loss within {loss_gap:.1e}, "
-                 f"non-zeros {nz[0]} vs {nz[1]} (a second K=1 fit {nz[2]}); within STEP_TOL: "
-                 f"K={DISPATCH_FIT_K} vs K=1 {share:.6f} (furthest {far:.3e}), two K=1 fits {share_ee:.6f} (furthest "
-                 f"{far_ee:.3e}); under deterministic algorithms K={DISPATCH_FIT_K} vs K=1 "
-                 f"{share_d:.6f} (furthest {far_d:.3e}, bit for bit: {bitwise_d}), non-zeros "
-                 f"{nz_d[0]} vs {nz_d[1]}")
-    del g_fit, e_fit, e2_fit, gd_fit, ed_fit
+                 f"({step_replays} graph replays, the last a group of "
+                 f"{TRAIN_BATCHES % DISPATCH_FIT_K} real steps; {g_eager} groups eager) "
+                 f"{g_s:.3f} s (capture included) | steps_per_call=1 {e_s:.3f} s; "
+                 f"first loss {first[0]:.6f} vs {first[1]:.6f}, every loss within "
+                 f"{loss_gap:.1e}, non-zeros {nz[0]} vs {nz[1]} (a second "
+                 f"K=1 fit {nz[2]}); within STEP_TOL: K={DISPATCH_FIT_K} vs K=1 {share:.6f} "
+                 f"(furthest {far:.3e}), two K=1 fits {share_ee:.6f} (furthest {far_ee:.3e}); "
+                 f"under deterministic algorithms K={DISPATCH_FIT_K} vs K=1 {share_d:.6f} "
+                 f"(furthest {far_d:.3e}, bit for bit: {bitwise_d}; against the tail group "
+                 f"eager: {bitwise_t}), non-zeros {nz_d[0]} vs {nz_d[1]}; the fit's peak "
+                 f"allocated above what was live: K={DISPATCH_FIT_K} {gd_peak:.3f} GB, with the "
+                 f"tail eager {td_peak:.3f} GB, K=1 {ed_peak:.3f} GB")
+    del gd_fit, ed_fit, td_fit
 
     # ms a train step, graphed (10 steps and the refresh a replay) against eager
     opt = trainer.make_optimizer(tc)
@@ -2417,18 +2521,69 @@ def dispatch_phase(args, cfg, card: str) -> dict:
                  f"{busy(graphed_steps, 3)} | eager {e_ms / DISPATCH_FIT_K:.3f} ms "
                  f"({TRAIN_BATCH * DISPATCH_FIT_K / e_ms * 1e3:.0f} ex/s), 10 steps "
                  f"{busy(eager_steps, 3)}")
-    del multi, params, state, batches, stacked
 
-    # the pipeline leg: --k-steps 8 against --k-steps 1 on the same 1M rows
+    # the fit's tail group: its real steps and the refresh, one replay against the same eager
+    tail_k = TRAIN_BATCHES % DISPATCH_FIT_K
+    tail_mask = stacked["mask"] * (torch.arange(DISPATCH_FIT_K, device=dev) < tail_k)[:, None]
+
+    def graphed_tail():
+        multi(params, state, stacked["xi"], stacked["xv"], stacked["y"], tail_mask, gen, None,
+              0.01, k_real=tail_k)
+        torch.cuda.synchronize()
+
+    def eager_tail():
+        with eager_forms():
+            graphed_tail()
+    gt_ms, et_ms = in_turns(graphed_tail, eager_tail, 10)
+    lines.append(f"  the tail group ({tail_k} real steps of {DISPATCH_FIT_K} and the refresh): "
+                 f"one replay {gt_ms:.3f} ms by the host clock, {busy(graphed_tail, 3)} | eager "
+                 f"{et_ms:.3f} ms, {busy(eager_tail, 3)}")
+    del multi, params, state, batches, stacked, tail_mask
+
+    # the pipeline leg: --k-steps 8, and --k-steps 1 (a replay a step) against it eager, on the
+    # same 1M rows
     tmp = tempfile.TemporaryDirectory()
     with contextlib.redirect_stdout(io.StringIO()):
         sizes = hp.generate(tmp.name, PIPE_ROWS)
     n_steps = PIPE_ROWS // TRAIN_BATCH
-    legs = {k: hp.card_epoch(tmp.name, sizes, TRAIN_BATCH, k, n_steps) for k in (PIPE_K, 1)}
-    tmp.cleanup()
+    digests = []        # every batch the K=1 step receives, digested on the card
+    make_one = hp.make_train_step
+
+    def digesting_train_step(*a, **kw):
+        one = make_one(*a, **kw)
+
+        def step(params, opt_state, batch, generator=None):
+            digests.append(row_digests(batch["xi"], batch["xv"], batch["y"], lib=torch))
+            return one(params, opt_state, batch, generator)
+        return step
+    legs = {}
+    for name, k, form in ((f"--k-steps {PIPE_K}", PIPE_K, contextlib.nullcontext),
+                          ("--k-steps 1", 1, contextlib.nullcontext),
+                          ("--k-steps 1, eager", 1, eager_forms)):
+        hp.make_train_step = digesting_train_step if name == "--k-steps 1" else make_one
+        try:
+            with form(), counting_replays() as replays:
+                legs[name] = hp.card_epoch(tmp.name, sizes, TRAIN_BATCH, k, n_steps)[0], replays
+        finally:
+            hp.make_train_step = make_one
     check(all(res["card_steps"] == n_steps for res, _ in legs.values()), "pipeline leg steps")
-    for k, (res, _) in legs.items():
-        lines.append(f"  pipeline leg, --k-steps {k} ({'graph replays' if k > 1 else 'eager'}): "
+    k1_replays = legs["--k-steps 1"][1]["make_train_step(forward)"]
+    budget = 2 * hp.BUDGET_REPS
+    check(k1_replays == n_steps + budget == len(digests) and not legs["--k-steps 1, eager"][1],
+          f"--k-steps 1: {k1_replays} train-step replays for {n_steps} steps and {budget} reps")
+    want = np.stack([row_digests(b["index"], b["value"], b["label"])
+                     for b in ShardedBinPipeline(tmp.name).epoch_batches(TRAIN_BATCH, seed=4,
+                                                                           epoch=0)])
+    same_rows = np.array_equal(torch.stack(digests[:n_steps]).cpu().numpy(), want)
+    check(same_rows, "--k-steps 1: the rows the card trained on differ from a second host pass")
+    tmp.cleanup()
+    forms = {f"--k-steps {PIPE_K}": f"graph replays, {PIPE_K} steps a replay",
+             "--k-steps 1": f"graph replays, one a step: {k1_replays - budget} in the epoch, "
+                            f"{budget} in the budgets; the rows trained on equal a second host "
+                            f"pass: {same_rows}, their digests inside the wall",
+             "--k-steps 1, eager": "eager"}
+    for name, (res, _) in legs.items():
+        lines.append(f"  pipeline leg, {name} ({forms[name]}): "
                      f"{res['card_steps']} steps in {res['card_wall_s']} s, "
                      f"{res['card_step_ms']} ms a step on cached input, wall_over_budget "
                      f"{res['wall_over_budget']}, {res['card_step_ms_staged']} ms a step "
@@ -3028,6 +3183,106 @@ def per_batch_phase(args, cfg, card: str) -> dict:
     return {"launches_per_batch_path": cli_launches, "max_abs_err_per_batch": tower_err}
 
 
+HASH_ROWS = 24 * 1024       # phase 23's training rows: 24 steps an epoch at the default B=1024
+HASH_TEST_ROWS = 16_384
+HASH_EPOCHS = 2
+HASH_AUC_GAP = 1e-5         # the card's test AUC against the CPU port's
+
+
+def last_forms_phase(args, cfg, card: str) -> None:
+    """Phase 23: the last compiled forms. ``HashMLPBaseline`` at its default
+    width (``hash_dim`` 2048, hidden (256, 128), B=1024) on seeded rows at the
+    full-Criteo cardinalities: graphed and eager fits in turns under
+    deterministic algorithms, equal bit for bit; one replay a step, counted;
+    the test AUC against the CPU port's fit; ms a step graphed and eager, by
+    the host clock and by device time."""
+    import dataclasses
+
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.config import TrainConfig
+    from xsdeepfwfm_deprecated_torch.models import hash_mlp_baseline as hm
+    from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+
+    quiet = logging.getLogger("chip_smoke.last_forms")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    where = f"[{card}]"
+    t_phase = time.perf_counter()
+    xi, xv, y = make_training_rows(cfg, args.seed + 50, HASH_ROWS + HASH_TEST_ROWS)
+    train, test = slice(0, HASH_ROWS), slice(HASH_ROWS, None)
+    tc = TrainConfig(n_epochs=HASH_EPOCHS, batch_size=1024, learning_rate=1e-3,
+                     random_seed=args.seed)
+    steps = HASH_EPOCHS * (HASH_ROWS // tc.batch_size)
+
+    def fit(graphed: bool):
+        base = hm.HashMLPBaseline(train_cfg=tc, logger=quiet)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (contextlib.nullcontext() if graphed else eager_forms()), \
+                counting_replays() as replays:
+            base.fit(xi[train], xv[train], y[train])
+        torch.cuda.synchronize()
+        return base, time.perf_counter() - t0, replays[hm_step_name]
+
+    hm_step_name = "HashMLPBaseline.fit step"
+    fits = []
+    with deterministic():
+        for graphed in (True, False, True, False):
+            fits.append((graphed,) + fit(graphed))
+    ref = fits[0][1]
+    leaves = lambda b: _tree.leaves(b.params)      # noqa: E731
+    same = all(all(torch.equal(a, w) for a, w in zip(leaves(b), leaves(ref)))
+               and b.last_epoch_losses == ref.last_epoch_losses for _, b, _, _ in fits)
+    replays = [(g, n) for g, _, _, n in fits]
+    check(same, "graphed and eager hash-MLP fits differ")
+    check(all(n == (steps if g else 0) for g, n in replays),
+          f"hash-MLP fit replays {replays} for {steps} steps a graphed fit")
+    cpu = hm.HashMLPBaseline(train_cfg=tc, logger=quiet, device="cpu")
+    cpu.fit(xi[train], xv[train], y[train])
+    auc_card = ref.evaluate(xi[test], xv[test], y[test])[0]
+    auc_cpu = cpu.evaluate(xi[test], xv[test], y[test])[0]
+    check(abs(auc_card - auc_cpu) <= HASH_AUC_GAP,
+          f"hash-MLP test AUC {auc_card} on the card, {auc_cpu} on the CPU")
+
+    # ms a step: the fit's step function, graphed as fit graphs it, against it eager
+    dev = torch.device("cuda")
+    params = hm.init_params(torch.Generator().manual_seed(args.seed), 13 + ref.hash_dim,
+                            ref.hidden, device=dev)
+    opt = hm.Optimizer(dataclasses.replace(tc, optimizer_type="adam", weight_decay=0.0))
+    state = opt.init(params)
+    x = torch.from_numpy(ref._featurize(xi[:tc.batch_size], xv[:tc.batch_size])).to(dev)
+    yb = torch.from_numpy(y[:tc.batch_size]).to(dev)
+    clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
+    graph = cuda_graph.Graphed(lambda a, b: hm.train_step(params, state, opt, a, b), (x, yb),
+                               device=dev, name=hm_step_name,
+                               warmup=lambda a, b: hm.train_step(clone(params), clone(state),
+                                                                 opt, a, b))
+
+    def graphed_step():
+        graph(x, yb)
+        torch.cuda.synchronize()
+
+    def eager_step():
+        hm.train_step(params, state, opt, x, yb)
+        torch.cuda.synchronize()
+    g_ms, e_ms = in_turns(graphed_step, eager_step, 50)
+    g_busy, e_busy = busy(graphed_step, 20), busy(eager_step, 20)
+    del graph, params, state
+    phase(23, f"the last compiled forms: HashMLPBaseline at hash_dim {ref.hash_dim}, hidden "
+              f"{tuple(ref.hidden)}, B={tc.batch_size}, {time.perf_counter() - t_phase:.1f} s "
+              f"{where}")
+    print(f"  fits of {HASH_EPOCHS} epochs of {HASH_ROWS // tc.batch_size} steps on {HASH_ROWS:,} "
+          f"seeded rows at the full-Criteo cardinalities, under deterministic algorithms, "
+          f"graphed and eager in turns: "
+          + ", ".join(f"{'graphed' if g else 'eager'} {secs:.3f} s ({n} replays)"
+                      for g, _, secs, n in fits)
+          + f"; parameters and losses equal bit for bit: {same} {where}")
+    print(f"  test AUC on {HASH_TEST_ROWS:,} rows: card {auc_card:.6f}, CPU port {auc_cpu:.6f} "
+          f"(|diff| {abs(auc_card - auc_cpu):.1e}, at most {HASH_AUC_GAP}) {where}")
+    print(f"  a step at B={tc.batch_size} (forward, BCE, autograd.grad, Adam): graphed "
+          f"{g_ms:.3f} ms by the host clock, {g_busy} | eager {e_ms:.3f} ms, {e_busy} {where}")
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -3255,7 +3510,7 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22), without the result lines")
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23), without the result lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
                          "the fused tower's launches and its max |diff| against the plain "
@@ -3310,7 +3565,8 @@ def main(argv=None) -> int:
         for first, run in ((18, scale_phase), (19, pipeline_phase)):
             if first in groups:
                 run(card)
-        for first, run in ((20, dispatch_phase), (21, timers_phase), (22, per_batch_phase)):
+        for first, run in ((20, dispatch_phase), (21, timers_phase), (22, per_batch_phase),
+                           (23, last_forms_phase)):
             if first in groups:
                 run(args, cfg, card)
         print(card)
@@ -3346,6 +3602,9 @@ def main(argv=None) -> int:
 
     # ---- 22. the per-batch compiled dispatch: fit at steps_per_call=1, graphed against eager
     per_batch = per_batch_phase(args, cfg, card)
+
+    # ---- 23. the last compiled forms: the hash-MLP baseline's fit, graphed against eager
+    last_forms_phase(args, cfg, card)
 
     # ---- result lines
     kernels = [{

@@ -1,8 +1,9 @@
 """The CUDA-graph capture helper (``utils/cuda_graph.py``): on the CPU, with
 stand-ins for CUDA's graph, capture and streams, the launch counts and a
 mesh's ``traffic`` through a replay, a sharded step's generator, and a failed
-capture; on the card (marked ``cuda``), a graphed ``Predictor``
-and a graphed multi-step against their eager forms. No JAX here, so the card's
+capture; on the card (marked ``cuda``), a graphed ``Predictor``, a graphed
+multi-step, a padded pruning group, the hash-MLP baseline's fit and
+``calibrate`` against their eager forms. No JAX here, so the card's
 machine runs the card's test: ``python -m pytest --noconftest
 tests/test_torch_cuda_graph.py -m cuda``.
 """
@@ -242,3 +243,56 @@ def test_graphed_predictor_and_multi_step_on_the_card():
         torch.use_deterministic_algorithms(False)
     for a, w in zip(*map(_tree.leaves, runs)):
         assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_last_compiled_forms_equal_their_eager_forms_on_the_card(monkeypatch):
+    """On the card, under deterministic algorithms, each form graphed against
+    the same form eager (``cuda_graph.on_card`` made false for it), to the
+    bit: a pruning multi-step group of 3 real steps in 4 (the fit's tail
+    group; dropout on, one replay of its own graph) and a full group after
+    it; ``HashMLPBaseline.fit`` (a replay a step); ``calibrate`` (a replay a
+    batch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from xsdeepfwfm_deprecated_torch.compression.quantization import calibrate
+    from xsdeepfwfm_deprecated_torch.models.hash_mlp_baseline import HashMLPBaseline
+    cfg = ModelConfig(field_size=len(SIZES), feature_sizes=SIZES, numerical=3, embedding_size=4,
+                      h_depth=2, deep_nodes=64, use_fwfm=True, use_deep=True, use_lw=True,
+                      use_fwlw=True)
+    rng = np.random.default_rng(2)
+    b, k = 512, 4
+    xi = rng.integers(0, SIZES[3:], size=(k, b, 3)).astype(np.int32)
+    xv = rng.normal(size=(k, b, 3)).astype(np.float32)
+    y = (rng.random((k, b)) < 0.4).astype(np.float32)
+    mask = np.ones((k, b), np.float32)
+    mask[3] = 0.0
+    tc = TrainConfig(batch_size=b, learning_rate=1e-2, weight_decay=1e-4)
+    opt = trainer.make_optimizer(tc)
+    prune_kw = dict(emb_r=0.5, emb_corr=1.0, prune_fm=True, prune_deep=True, prune_r=True)
+    index = rng.integers(0, 1000, size=(4096, 26))
+    value = rng.normal(size=(4096, 13)).astype(np.float32)
+    labels = (rng.random(4096) < 0.3).astype(np.float32)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed in (True, False):
+            if not graphed:
+                monkeypatch.setattr(cuda_graph, "on_card", lambda device: False)
+            p = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+            s = opt.init(p)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            multi = trainer.make_multi_step(cfg, tc, opt, prune_kw=prune_kw)
+            inputs = [torch.from_numpy(a).cuda() for a in (xi, xv, y)]
+            losses = [multi(p, s, *inputs, torch.from_numpy(m).cuda(), gen, None, a, k_real=kr)
+                      for m, a, kr in ((mask, 0.3, 3), (np.ones_like(mask), 0.5, 4))]
+            assert len(multi._graphs) == (2 if graphed else 0) and float(losses[0][3]) == 0.0
+            base = HashMLPBaseline(train_cfg=TrainConfig(n_epochs=2, batch_size=1024,
+                                                         learning_rate=1e-3))
+            base.fit(index, value, labels)
+            scales = calibrate(p, cfg, xi.reshape(-1, 3), xv.reshape(-1, 3), batch_size=256)
+            runs.append(_tree.leaves((p, s, losses, base.params, scales)) + [gen.get_state()])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, w in zip(*runs):
+        assert torch.equal(a.cpu(), w.cpu())

@@ -4,8 +4,9 @@ scripts of ``scripts/`` that they port, on the CPU at small sizes.
 
 The scripts are loaded by path here, in the test only: the port never imports
 them. The generator is held to the script's bit for bit; the card leg, run on
-the CPU with a narrow model, to the pipeline's batches and to the port's own
-``train_step`` over them; each CLI to the files its script writes.
+the CPU with a narrow model, to the pipeline's batches (a spy on the K=1
+step that ``make_train_step`` makes) and to the port's own ``train_step``
+over them; each CLI to the files its script writes.
 """
 
 import itertools
@@ -130,13 +131,17 @@ def test_card_epoch_trains_on_exactly_the_pipelines_batches(tmp_path, monkeypatc
                       h_depth=2, deep_nodes=16, use_fwfm=True, use_deep=True, use_lw=True,
                       use_fwlw=True)
     seen = []
-    step = hp.train_step
+    make = hp.make_train_step
 
-    def spy(params, opt_state, batch, *args, **kw):
-        seen.append({k: v.clone() for k, v in batch.items()})
-        return step(params, opt_state, batch, *args, **kw)
+    def spy(*args, **kw):       # the K=1 step, which records each batch it is given
+        step = make(*args, **kw)
 
-    monkeypatch.setattr(hp, "train_step", spy)
+        def recorded(params, opt_state, batch, generator=None):
+            seen.append({k: v.clone() for k, v in batch.items()})
+            return step(params, opt_state, batch, generator)
+        return recorded
+
+    monkeypatch.setattr(hp, "make_train_step", spy)
     res, params = hp.card_epoch(d, sizes, 64, 1, 4, mcfg=cfg, device="cpu")
 
     assert CARD_KEYS <= set(res) and res["card_steps"] == 4 and res["h2d_gb_per_s"] is None

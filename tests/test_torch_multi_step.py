@@ -252,7 +252,7 @@ def test_card_epoch_dispatches_groups_of_k_steps(tmp_path, monkeypatch):
         return step
 
     monkeypatch.setattr(hp, "make_multi_step", spy)
-    monkeypatch.setattr(hp, "train_step", None)      # K > 1 never steps one batch alone
+    monkeypatch.setattr(hp, "make_train_step", None)      # K > 1 never steps one batch alone
     res, params = hp.card_epoch(d, sizes, 64, 2, 4, mcfg=cfg, device="cpu")
     assert res["card_steps"] == 4
     # the epoch's 2 groups, the budget's 5 replays of the last, the staged budget's 5 over them

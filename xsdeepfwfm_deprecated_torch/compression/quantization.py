@@ -30,6 +30,7 @@ from ..ops import interactions as inter_ops
 from ..ops import quantized as q_ops
 from ..ops.cuda.int8_mlp import int8_mlp, pack_quantized_deep
 from ..ops.embedding import _clip_per_field, _combine_qr, packed_lookup, packed_lookup_serving
+from ..utils import cuda_graph
 
 FUSED_BLOCK_B = 512   # rows per scale tile of the fused tower
 
@@ -119,7 +120,9 @@ def calibrate(params: Dict, cfg: ModelConfig, xi: np.ndarray, xv: np.ndarray,
     record the abs-max of the tower's input and of every hidden layer's
     output, for every deep net (each has its own weights, so its own
     ranges). Runs on the params' device; the scales come back as 0-d tensors
-    there, ``{"input": s, "nets": {net: [s, ...]}}``."""
+    there, ``{"input": s, "nets": {net: [s, ...]}}``. On the card the
+    batches' abs-maxes are one CUDA graph replay each (the JAX package jits
+    them, ``:131``), kept on the card until one read after the last."""
     spec = deepfwfm.make_embedding_spec(cfg)
     device = _tree.leaves(params)[0].device
     net_names = [f"net_{i}" for i in range(1, cfg.num_deeps + 1)]
@@ -140,13 +143,25 @@ def calibrate(params: Dict, cfg: ModelConfig, xi: np.ndarray, xv: np.ndarray,
                 maxes.append(x.abs().max())
         return torch.stack(maxes)
 
-    amax = np.zeros(1 + len(net_names) * cfg.h_depth)
+    graphs = cuda_graph.Graphs()
+
+    def batch_maxes(xi_b: torch.Tensor, xv_b: torch.Tensor) -> torch.Tensor:
+        if not cuda_graph.on_card(device):
+            return layer_maxes(xi_b, xv_b)
+        graph = graphs.get((tuple(xi_b.shape), tuple(xv_b.shape)), (), lambda: cuda_graph.Graphed(
+            layer_maxes, (xi_b, xv_b), device=device, name="calibrate"))
+        return graph(xi_b, xv_b).clone()   # the next replay overwrites the graph's output
+
+    maxes = []
     n = xi.shape[0]
     for i in range(n_batches):
         lo = (i * batch_size) % max(n - batch_size, 1)
         xi_b = torch.from_numpy(np.asarray(xi[lo:lo + batch_size], np.int32)).to(device)
         xv_b = torch.from_numpy(np.asarray(xv[lo:lo + batch_size], np.float32)).to(device)
-        amax = np.maximum(amax, layer_maxes(xi_b, xv_b).cpu().numpy())
+        maxes.append(batch_maxes(xi_b, xv_b))
+    amax = np.zeros(1 + len(net_names) * cfg.h_depth)
+    if maxes:       # the one read
+        amax = np.maximum(amax, torch.stack(maxes).cpu().numpy().max(axis=0))
     # float64 on the host, rounded once to float32, as the JAX package does
     scales = torch.from_numpy((np.maximum(amax, 1e-12) / 127.0).astype(np.float32)).to(device)
     h = cfg.h_depth

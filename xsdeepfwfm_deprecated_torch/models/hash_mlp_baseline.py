@@ -9,7 +9,8 @@ experiment parity.
 
 Multiplicative hashing of (field, value) pairs into ``hash_dim`` buckets,
 bucket-count featurization, dense concat, and a train loop on the port's
-``Optimizer`` with adam.
+``Optimizer`` with adam. The JAX step is jitted (``:92-100``); on the card
+each step is one CUDA graph replay (``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..config import TrainConfig
 from ..device import DeviceLike, resolve_device, scaled_normal
 from ..train import metrics as M
 from ..train.trainer import Optimizer
+from ..utils import cuda_graph
 from ..utils.logging import get_logger
 
 
@@ -69,10 +71,23 @@ def forward(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return out[:, 0]
 
 
+def train_step(params: Dict, opt_state, opt: Optimizer, xb: torch.Tensor,
+               yb: torch.Tensor) -> torch.Tensor:
+    """One step of the mean BCE, in place on ``params`` and ``opt_state``;
+    returns the loss, a 0-d tensor on their device."""
+    leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
+    it = iter(leaves)
+    live = _tree.tree_map(lambda _: next(it), params)
+    loss = F.binary_cross_entropy_with_logits(forward(live, xb), yb)
+    opt.update(params, list(torch.autograd.grad(loss, leaves)), opt_state)
+    return loss.detach()
+
+
 class HashMLPBaseline:
     """Minimal estimator: fit/predict/eval with PRAUC+RCE (reference
     ``baseline.py:86-102`` metric pair). ``device=None`` means the CUDA
-    device, and raises when there is none."""
+    device, and raises when there is none. After ``fit``,
+    ``last_epoch_losses`` holds the last epoch's step losses."""
 
     def __init__(self, hash_dim: int = 2048, hidden=(256, 128),
                  train_cfg: Optional[TrainConfig] = None, logger=None,
@@ -97,15 +112,26 @@ class HashMLPBaseline:
         # plain adam at the config's learning rate, without L2, whatever else it says
         opt = Optimizer(dataclasses.replace(self.tcfg, optimizer_type="adam",
                                             weight_decay=0.0))
-        opt_state = opt.init(self.params)
+        params = self.params
+        opt_state = opt.init(params)
+        graphs = cuda_graph.Graphs()
 
         def step(xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
-            leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(self.params)]
-            it = iter(leaves)
-            live = _tree.tree_map(lambda _: next(it), self.params)
-            loss = F.binary_cross_entropy_with_logits(forward(live, xb), yb)
-            opt.update(self.params, list(torch.autograd.grad(loss, leaves)), opt_state)
-            return loss.detach()
+            """One step; on the card one replay of a graph captured for the
+            batch's shape, the loss copied out before the next replay."""
+            if not cuda_graph.on_card(self.device):
+                return train_step(params, opt_state, opt, xb, yb)
+
+            def warmup(xb, yb):     # on clones of the state
+                clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
+                train_step(clone(params), clone(opt_state), opt, xb, yb)
+            graph = graphs.get((tuple(xb.shape), tuple(yb.shape)),
+                               cuda_graph.state_key(params, opt_state),
+                               lambda: cuda_graph.Graphed(
+                                   lambda xb, yb: train_step(params, opt_state, opt, xb, yb),
+                                   (xb, yb), device=self.device, name="HashMLPBaseline.fit step",
+                                   warmup=warmup))
+            return graph(xb, yb).clone()
 
         bs = self.tcfg.batch_size
         rng = np.random.default_rng(self.tcfg.random_seed)
@@ -114,7 +140,8 @@ class HashMLPBaseline:
             losses = [step(torch.from_numpy(x[perm[lo:lo + bs]]).to(self.device),
                            torch.from_numpy(y[perm[lo:lo + bs]]).to(self.device))
                       for lo in range(0, len(y) - bs + 1, bs)]
-            total = float(torch.stack(losses).sum()) if losses else 0.0
+            self.last_epoch_losses = torch.stack(losses).tolist() if losses else []  # one read
+            total = sum(self.last_epoch_losses)
             self.logger.info(f"baseline epoch {epoch + 1} loss {total:.4f}")
         return self
 

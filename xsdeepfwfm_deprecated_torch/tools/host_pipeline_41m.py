@@ -23,9 +23,10 @@ is reused, and a set of another size, or one left half written, is refused.
 
 As in the script, ``--k-steps`` K > 1 stacks K batches into a group and
 steps them through ``train.trainer.make_multi_step``, one CUDA graph replay a
-group on the card (an incomplete last group is dropped), and a timed rep of
-either budget is one replay; ``--k-steps 1`` steps each batch through
-``train_step``. :func:`generate` makes the script's numpy draws in the
+group on the card (an incomplete last group is dropped); ``--k-steps 1``
+steps each batch through ``train.trainer.make_train_step``, one replay a
+batch, where the script runs its compiled scan at K=1. A timed rep of either
+budget is one replay. :func:`generate` makes the script's numpy draws in the
 script's order, so a seed gives the same ``.npy`` files, bit for bit, in both
 packages.
 
@@ -53,7 +54,7 @@ from ..data.batching import prefetch_to_device, stack_groups
 from ..data.sharded_input import ShardedBinPipeline
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
-from ..train.trainer import make_multi_step, make_optimizer, train_step
+from ..train.trainer import make_multi_step, make_optimizer, make_train_step
 from .synthetic_scale_run import FULL_CRITEO_CAT_SIZES, _zipf_cdfs
 
 BUDGET_REPS = 5          # timed reps of --k-steps steps on the last batch
@@ -191,9 +192,10 @@ def card_epoch(dirpath: str, feature_sizes, batch: int, k_steps: int, max_steps:
                ) -> Tuple[dict, Dict]:
     """Feed the epoch's batches (``epoch_batches(batch, seed=4, epoch=0)``)
     through ``prefetch_to_device`` into the train step until ``max_steps``:
-    one ``train_step`` a batch for ``k_steps`` 1, else one ``make_multi_step``
-    dispatch a group of ``k_steps`` batches (whole groups only, as the
-    script). Then time ``BUDGET_REPS`` more dispatches on the last input,
+    one ``make_train_step`` dispatch a batch for ``k_steps`` 1, else one
+    ``make_multi_step`` dispatch a group of ``k_steps`` batches (whole groups
+    only, as the script); on the card each dispatch is one CUDA graph replay.
+    Then time ``BUDGET_REPS`` more dispatches on the last input,
     already on the device, for the pure-step budget (the script's), and as
     many again over the loop's last ``BUDGET_REPS`` inputs, still on the
     device, in order and round again where the loop had fewer (the staged
@@ -234,13 +236,14 @@ def card_epoch(dirpath: str, feature_sizes, batch: int, k_steps: int, max_steps:
         def dispatch(g) -> None:
             multi(params, opt_state, g["xi"], g["xv"], g["y"], g["mask"], gen, k_real=k_steps)
     else:
+        one = make_train_step(mcfg, tcfg, opt)
         inputs = batches()
 
         def dispatch(g) -> None:
-            train_step(params, opt_state, g, mcfg, tcfg, opt, generator=gen)
+            one(params, opt_state, g, gen)
 
     n_budget = BUDGET_REPS * k_steps
-    staged: collections.deque = collections.deque(maxlen=BUDGET_REPS if k_steps > 1 else n_budget)
+    staged: collections.deque = collections.deque(maxlen=BUDGET_REPS)
     steps, feed_s = 0, 0.0
     _sync(device)
     t0 = time.perf_counter()

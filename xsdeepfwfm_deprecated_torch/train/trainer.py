@@ -51,8 +51,8 @@ The JAX package's compiled dispatch is ported as CUDA graphs
 (``utils/cuda_graph.py``): :func:`make_train_step` (``:63-85``) runs one
 train step, :class:`PruneRefresh` one prune refresh and :func:`make_eval_fn`
 (``:162-169``) one eval batch as one graph replay on the card;
-:func:`make_multi_step` (``:88-159``) runs K full train steps over stacked
-``(K, B, ...)`` batches, and optionally one prune refresh, and
+:func:`make_multi_step` (``:88-159``) runs K train steps over stacked
+``(K, B, ...)`` batches, padded or not, and optionally one prune refresh, and
 :func:`make_scan_eval_fn` (``:171-195``) ``EVAL_SCAN_K`` eval batches. ``fit``
 steps through the first two at ``steps_per_call=1`` and through the fourth
 above it; ``_predict_logits`` runs its full groups through the last and the
@@ -286,17 +286,19 @@ class MultiStep:
     the global mask), and a rank that skipped a step would leave the others'
     collectives waiting.
 
-    On the card a group of K real steps is one CUDA graph replay: captured on
-    the first call for each input shape and state (the parameters and
+    On the card a group is one CUDA graph replay: captured on the first call
+    for each input shape, state and pattern of real steps (the parameters and
     optimizer state are updated at the addresses they were captured with, so
     a refresh writes into them in place), with ``adaptive`` a device input
     filled before each replay and the dropout generator registered with the
-    graph, so that the K steps draw the numbers that K eager steps would. On
-    a mesh the graph holds every collective of the K steps and the refresh,
-    which NCCL's process groups allow and gloo's do not: over gloo (and on
-    the CPU) every step runs eagerly, in the same order. A group with
-    padding steps runs its real steps eagerly, then the refresh, on every
-    rank alike."""
+    graph, so that the real steps draw the numbers that as many eager steps
+    would. A group with padding steps (the last group of an epoch) is a
+    graph of its own, which holds its real steps and the refresh, as JAX's
+    one compiled dispatch holds the ``lax.cond`` of every step: its skipped
+    steps draw nothing, touch no state and give a loss of 0. On a mesh the
+    graph holds every collective of the steps and the refresh, which NCCL's
+    process groups allow and gloo's do not: over gloo (and on the CPU) every
+    real step runs eagerly, in the same order."""
 
     name = "make_multi_step"    # what its graphs are called
 
@@ -357,30 +359,32 @@ class MultiStep:
                                 if isinstance(adaptive, torch.Tensor)
                                 else torch.full((), float(adaptive), dtype=torch.float32,
                                                 device=device))
-        if not (device.type == "cuda" and self.capture and all(live)):
+        if not (cuda_graph.on_card(device) and self.capture):
             return self._steps(params, opt_state, k_in, generator, live)
         if torch.is_anomaly_enabled():
             raise RuntimeError("autograd's anomaly detection (utils.debug.nan_debugging) reads "
                                "values back every step and cannot be captured: inside it fit "
                                "steps eagerly at steps_per_call=1")
-        shapes = tuple((key, tuple(t.shape), t.dtype) for key, t in k_in.items())
+        shapes = (tuple((key, tuple(t.shape), t.dtype) for key, t in k_in.items()), tuple(live))
         state = cuda_graph.state_key(params, opt_state) + (id(generator),)
         graph = self._graphs.get(shapes, state, lambda: self._capture(
-            params, opt_state, generator, k_in, device))
+            params, opt_state, generator, k_in, device, live))
         return graph(*k_in.values()).clone()
 
     def _capture(self, params, opt_state, generator, k_in: Dict[str, torch.Tensor],
-                 device) -> cuda_graph.Graphed:
-        names, k = tuple(k_in), k_in["xi"].shape[0]
+                 device, live: List[bool]) -> cuda_graph.Graphed:
+        names = tuple(k_in)
+        first = live.index(True) if any(live) else 0    # the step the warm-up runs
 
         def steps(*xs):
-            return self._steps(params, opt_state, dict(zip(names, xs)), generator, [True] * k)
+            return self._steps(params, opt_state, dict(zip(names, xs)), generator, live)
 
-        def warmup(*xs):   # one step and the refresh, on clones of the state
-            one = {key: x if key == "adaptive" else x[:1] for key, x in zip(names, xs)}
+        def warmup(*xs):   # one real step and the refresh, on clones of the state
+            one = {key: x if key == "adaptive" else x[first:first + 1]
+                   for key, x in zip(names, xs)}
             clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
             self._steps(clone(params), clone(opt_state), one,
-                        cuda_graph.clone_generator(generator), [True])
+                        cuda_graph.clone_generator(generator), [any(live)])
 
         name = f"{self.name}({getattr(self.forward_fn, '__qualname__', self.forward_fn)})"
         return cuda_graph.Graphed(
@@ -460,7 +464,7 @@ class PruneRefresh:
     def __call__(self, params: Dict, adaptive: float) -> None:
         device = _tree.leaves(params)[0].device
         target = torch.full((), float(adaptive), dtype=torch.float32, device=device)
-        if not (device.type == "cuda" and self.capture):
+        if not (cuda_graph.on_card(device) and self.capture):
             prune_params_(params, target, **self.prune_kw)
             return
 
@@ -508,7 +512,7 @@ class ScanEval:
 
     def _run(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
         device, mesh = _tree.leaves(params)[0].device, self.mesh
-        if device.type != "cuda" or not (mesh is None or mesh.capturable):
+        if not (cuda_graph.on_card(device) and (mesh is None or mesh.capturable)):
             return self._forwards(params, xi_k.to(device), xv_k.to(device))
         graph = self._graphs.get(
             (tuple(xi_k.shape), tuple(xv_k.shape)), cuda_graph.state_key(params),
@@ -797,8 +801,8 @@ class DeepFMEstimator:
         ``prune_interval`` when pruning, and each group of K batches ends in
         the refresh that the per-batch schedule makes there; the teacher's
         logits are stacked into the same groups. On the card a group is one
-        CUDA graph replay; a last group of fewer real batches steps them one
-        by one, then refreshes. The parameters, the losses and the schedule
+        CUDA graph replay, the last group of fewer real batches too (a graph
+        of its own, captured once a fit). The parameters, the losses and the schedule
         are those of ``steps_per_call=1``. On a mesh each rank stacks its
         rows of the global batches, with their global real-row counts, and a
         group is one replay on every rank over NCCL, the K steps eager over

@@ -33,8 +33,8 @@ capture is ``thread_local``: NCCL's watchdog thread queries its events while
 it runs, which would end a ``global`` capture.
 
 A failure to capture raises, naming the function. Nothing gives way to eager
-calls on the card. On the CPU nothing is captured: the callers run their
-functions eagerly there.
+calls on the card. On the CPU nothing is captured: the callers ask
+:func:`on_card` and run their functions eagerly there.
 """
 
 from __future__ import annotations
@@ -107,6 +107,12 @@ class Log(Counter):
 
 
 COUNTERS: Tuple[Counter, ...] = tuple(Launches(k) for k in KERNELS)
+
+
+def on_card(device: torch.device) -> bool:
+    """Whether work on ``device`` is captured into graphs: on the card, not on
+    the CPU."""
+    return device.type == "cuda"
 
 
 def state_key(*trees: Any) -> Tuple:
