@@ -10,7 +10,6 @@ to being positive, finite numbers: on the CPU they are the host clock's.
 import importlib.util
 import json
 import logging
-import os
 import shutil
 
 import jax
@@ -189,16 +188,21 @@ def test_span_names_equal_the_jax_package():
 
 
 def test_named_scope_is_a_profiler_span_and_trace_exports(tmp_path):
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    """A span is recorded with the program's tracing on, which ``trace``
+    turns on for its block, and ``trace`` writes it into its chrome trace
+    beside the profiler's own events."""
+    import json
+    with TP.trace(None):                     # nothing asked, nothing written
+        with TP.named_scope(TP.SCOPE_DEEP):
+            pass
+    assert not TP.enabled() and TP.spans() == []
+    with TP.trace(str(tmp_path / "a" / "b")):
         with TP.named_scope(TP.SCOPE_DEEP):
             torch.ones(8).sum()
-    assert TP.SCOPE_DEEP in {e.key for e in prof.key_averages()}
-    with TP.trace(None):                     # nothing asked, nothing written
-        pass
-    with TP.trace(str(tmp_path / "a" / "b")):
-        torch.ones(8).sum()
-    assert os.path.getsize(tmp_path / "a" / "b" / TP.TRACE_FILE) > 0
+    events = json.loads((tmp_path / "a" / "b" / TP.TRACE_FILE).read_text())["traceEvents"]
+    assert any(e.get("name") == TP.SCOPE_DEEP and e.get("cat") == "user_annotation"
+               for e in events)
+    assert any(e.get("cat") == "cpu_op" for e in events)
 
 
 def test_simple_timeit_counts_calls_and_returns_seconds():

@@ -31,6 +31,7 @@ from ..ops import quantized as q_ops
 from ..ops.cuda.int8_mlp import int8_mlp, pack_quantized_deep
 from ..ops.embedding import _clip_per_field, _combine_qr, packed_lookup, packed_lookup_serving
 from ..utils import cuda_graph
+from ..utils import profiling as prof
 
 FUSED_BLOCK_B = 512   # rows per scale tile of the fused tower
 
@@ -218,7 +219,8 @@ def quantized_forward(qm: QuantizedModel, xi: torch.Tensor, xv: torch.Tensor,
     embedding rows and an int8 deep tower. ``use_fused_kernel`` runs the tower
     as the fused kernel (per-tile scales) when the scales are dynamic, there
     is one net and the batch is a multiple of 512; otherwise the tower runs
-    layer by layer (per-batch scales)."""
+    layer by layer (per-batch scales). The components are spans under the
+    JAX forward's names (:mod:`..utils.profiling`)."""
     cfg = qm.cfg
     spec = deepfwfm.make_embedding_spec(cfg)
     b = xi.shape[0]
@@ -231,13 +233,20 @@ def quantized_forward(qm: QuantizedModel, xi: torch.Tensor, xv: torch.Tensor,
     first_order = second_order = emb2 = pair_emb = x_deep = None
     if cfg.use_logit or cfg.use_fm or cfg.use_fwfm:
         if not cfg.use_fwlw:
-            first_order = lookup(qm.emb1_q, qm.params_fp.get("emb1"))[..., 0]
+            with prof.named_scope(prof.SCOPE_FM):
+                first_order = lookup(qm.emb1_q, qm.params_fp.get("emb1"))[..., 0]
         if cfg.use_fm or cfg.use_fwfm:
-            emb2 = lookup(qm.emb2_q, qm.params_fp.get("emb2"))
+            with prof.named_scope(prof.SCOPE_FM):
+                emb2 = lookup(qm.emb2_q, qm.params_fp.get("emb2"))
             if cfg.use_fwlw:
-                first_order = inter_ops.fwfm_linear_term(emb2, qm.params_fp["fwlw_w"])
-            second_order = (inter_ops.fm_second_order(emb2) if cfg.use_fm
-                            else inter_ops.fwfm_second_order(emb2, qm.params_fp["field_cov"]))
+                with prof.named_scope(prof.SCOPE_FWLW):
+                    first_order = inter_ops.fwfm_linear_term(emb2, qm.params_fp["fwlw_w"])
+            if cfg.use_fm:
+                with prof.named_scope(prof.SCOPE_OUTER_FM):
+                    second_order = inter_ops.fm_second_order(emb2)
+            else:
+                with prof.named_scope(prof.SCOPE_OUTER_FWFM):
+                    second_order = inter_ops.fwfm_second_order(emb2, qm.params_fp["field_cov"])
 
     if cfg.use_ffm:
         f, e = cfg.field_size, cfg.embedding_size
@@ -252,27 +261,28 @@ def quantized_forward(qm: QuantizedModel, xi: torch.Tensor, xv: torch.Tensor,
             if emb2 is None:
                 emb2 = lookup(qm.emb2_q, qm.params_fp.get("emb2"))
             x = emb2.reshape(b, -1).contiguous()
-        act = qm.act_scales
-        fused_ok = (use_fused_kernel and act is None and cfg.num_deeps == 1
-                    and b % FUSED_BLOCK_B == 0)
-        if use_fused_kernel and not fused_ok and b >= FUSED_BLOCK_B:
-            _warn_fallback(b, act is not None, cfg.num_deeps)
-        if fused_ok:
-            layers_q, fc_q = qm.fused_tower
-            x_deep = int8_mlp(x, layers_q, fc_q, block_b=FUSED_BLOCK_B)
-        for nidx in (() if fused_ok else range(1, cfg.num_deeps + 1)):
-            net, net_f = qm.deep_q[f"net_{nidx}"], qm.deep_f[f"net_{nidx}"]
-            # per-net calibrated scales; "hidden" is the single-net artifact layout
-            a_hidden = (act["nets"][f"net_{nidx}"] if act is not None and "nets" in act
-                        else act["hidden"] if act is not None else None)
-            h = x
-            for i, layer in enumerate(net["layers"]):
-                a_scale = None if act is None else (a_hidden[i - 1] if i > 0 else act["input"])
-                h = torch.relu(q_ops.quantized_dense(h, layer["w_q"], layer["w_scale"],
-                                                     layer["b"], a_scale,
-                                                     w_f=net_f["layers"][i]))
-            x_deep = q_ops.quantized_dense(h, net["fc"]["w_q"], net["fc"]["w_scale"], None,
-                                           None if act is None else a_hidden[-1],
-                                           w_f=net_f["fc"])
+        with prof.named_scope(prof.SCOPE_DEEP):
+            act = qm.act_scales
+            fused_ok = (use_fused_kernel and act is None and cfg.num_deeps == 1
+                        and b % FUSED_BLOCK_B == 0)
+            if use_fused_kernel and not fused_ok and b >= FUSED_BLOCK_B:
+                _warn_fallback(b, act is not None, cfg.num_deeps)
+            if fused_ok:
+                layers_q, fc_q = qm.fused_tower
+                x_deep = int8_mlp(x, layers_q, fc_q, block_b=FUSED_BLOCK_B)
+            for nidx in (() if fused_ok else range(1, cfg.num_deeps + 1)):
+                net, net_f = qm.deep_q[f"net_{nidx}"], qm.deep_f[f"net_{nidx}"]
+                # per-net calibrated scales; "hidden" is the single-net artifact layout
+                a_hidden = (act["nets"][f"net_{nidx}"] if act is not None and "nets" in act
+                            else act["hidden"] if act is not None else None)
+                h = x
+                for i, layer in enumerate(net["layers"]):
+                    a_scale = None if act is None else (a_hidden[i - 1] if i > 0 else act["input"])
+                    h = torch.relu(q_ops.quantized_dense(h, layer["w_q"], layer["w_scale"],
+                                                         layer["b"], a_scale,
+                                                         w_f=net_f["layers"][i]))
+                x_deep = q_ops.quantized_dense(h, net["fc"]["w_q"], net["fc"]["w_scale"], None,
+                                               None if act is None else a_hidden[-1],
+                                               w_f=net_f["fc"])
 
     return deepfwfm._assemble(cfg, qm.params_fp, first_order, second_order, x_deep)

@@ -18,6 +18,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 def shuffle_arrays(rng: np.random.Generator, *arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
     """One shared permutation over N arrays."""
@@ -87,7 +89,9 @@ class _PinnedRing:
     copies made from it have completed (an event recorded after them), so a
     ``non_blocking`` copy never reads a buffer that is being rewritten. A
     buffer is allocated once and then only written, which keeps the pinning
-    allocator out of the feed's loop."""
+    allocator out of the feed's loop. Spans (:mod:`..utils.profiling`):
+    ``feed.wait`` for the slot's copies, ``feed.stage`` for the copy into it
+    and the issue of the copies."""
 
     def __init__(self, slots: int):
         self.buffers: List[Dict[str, torch.Tensor]] = [{} for _ in range(slots)]
@@ -97,19 +101,22 @@ class _PinnedRing:
     def to_device(self, batch: Dict, device: torch.device) -> Dict:
         i, self.next = self.next, (self.next + 1) % len(self.buffers)
         if self.events[i] is not None:
-            self.events[i].synchronize()
-        bufs, out = self.buffers[i], {}
-        for key, v in batch.items():
-            if isinstance(v, np.ndarray):
-                buf = bufs.get(key)
-                if buf is None or buf.numpy().shape != v.shape or buf.numpy().dtype != v.dtype:
-                    buf = bufs[key] = torch.from_numpy(np.empty(v.shape, v.dtype)).pin_memory()
-                buf.numpy()[...] = v
-                v = buf.to(device, non_blocking=True)
-            out[key] = v
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        self.events[i] = event
+            with profiling.named_scope("feed.wait"):
+                self.events[i].synchronize()
+        with profiling.named_scope("feed.stage"):
+            bufs, out = self.buffers[i], {}
+            for key, v in batch.items():
+                if isinstance(v, np.ndarray):
+                    buf = bufs.get(key)
+                    if (buf is None or buf.numpy().shape != v.shape
+                            or buf.numpy().dtype != v.dtype):
+                        buf = bufs[key] = torch.from_numpy(np.empty(v.shape, v.dtype)).pin_memory()
+                    buf.numpy()[...] = v
+                    v = buf.to(device, non_blocking=True)
+                out[key] = v
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            self.events[i] = event
         return out
 
 
@@ -130,8 +137,11 @@ def prefetch_to_device(batch_iter: Iterable[Dict], device: torch.device,
     queue: collections.deque = collections.deque()
 
     def put(batch: Dict) -> None:
-        queue.append(ring.to_device(batch, device) if ring is not None
-                     else _to_cpu_tensors(batch))
+        if ring is not None:
+            queue.append(ring.to_device(batch, device))
+            return
+        with profiling.named_scope("feed.stage"):
+            queue.append(_to_cpu_tensors(batch))
 
     it = iter(batch_iter)
     for _ in range(size):

@@ -23,6 +23,7 @@ from ..ops import interactions as inter_ops
 from ..ops import mlp as mlp_ops
 from ..ops.embedding import PackedEmbeddingSpec
 from ..ops.quantized import AmaxFn
+from ..utils import profiling as prof
 
 
 def make_embedding_spec(cfg: ModelConfig) -> PackedEmbeddingSpec:
@@ -89,7 +90,8 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
     """(xi int (B, C), xv f32 (B, Nnum)) → logits (B,). ``lookup_fn``
     replaces the packed-table gather (the serving form, for example);
     ``amax_fn`` takes the QAT tower's activation abs-max over the whole batch
-    when these are one rank's rows of it (``ops.mlp.qat_mlp_forward``)."""
+    when these are one rank's rows of it (``ops.mlp.qat_mlp_forward``). The
+    components are spans under the JAX forward's names (:mod:`..utils.profiling`)."""
     spec = make_embedding_spec(cfg)
     lookup = lookup_fn or emb_ops.packed_lookup
     b = xi.shape[0]
@@ -98,17 +100,24 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
     first_order = second_order = emb2 = pair_emb = x_deep = None
     if cfg.use_logit or cfg.use_fm or cfg.use_fwfm:
         if not cfg.use_fwlw:
-            first_order = lookup(params["emb1"], spec, xi, xv)[..., 0]          # (B, F)
+            with prof.named_scope(prof.SCOPE_FM):
+                first_order = lookup(params["emb1"], spec, xi, xv)[..., 0]      # (B, F)
             first_order = mlp_ops.dropout(generator, first_order,
                                           cfg.dropout_shallow[0], shallow_drop)
         if cfg.use_fm or cfg.use_fwfm:
-            emb2 = lookup(params["emb2"], spec, xi, xv)                         # (B, F, E)
+            with prof.named_scope(prof.SCOPE_FM):
+                emb2 = lookup(params["emb2"], spec, xi, xv)                     # (B, F, E)
             if cfg.use_fwlw:
-                first_order = inter_ops.fwfm_linear_term(emb2, params["fwlw_w"])
+                with prof.named_scope(prof.SCOPE_FWLW):
+                    first_order = inter_ops.fwfm_linear_term(emb2, params["fwlw_w"])
                 first_order = mlp_ops.dropout(generator, first_order,
                                               cfg.dropout_shallow[0], shallow_drop)
-            second_order = (inter_ops.fm_second_order(emb2) if cfg.use_fm
-                            else inter_ops.fwfm_second_order(emb2, params["field_cov"]))
+            if cfg.use_fm:
+                with prof.named_scope(prof.SCOPE_OUTER_FM):
+                    second_order = inter_ops.fm_second_order(emb2)
+            else:
+                with prof.named_scope(prof.SCOPE_OUTER_FWFM):
+                    second_order = inter_ops.fwfm_second_order(emb2, params["field_cov"])
             second_order = mlp_ops.dropout(generator, second_order,
                                            cfg.dropout_shallow[1], shallow_drop)
 
@@ -131,9 +140,10 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
         if cfg.quantization_aware:      # the QAT tower quantizes the flat activation vector
             deep_in = deep_in.reshape(b, -1)
             deep_fn = partial(mlp_ops.qat_mlp_forward, amax_fn=amax_fn)
-        for n in range(1, cfg.num_deeps + 1):
-            x_deep = deep_fn(params["deep"][f"net_{n}"], deep_in, dropout_rates=rates,
-                             train=train, generator=generator)
+        with prof.named_scope(prof.SCOPE_DEEP):
+            for n in range(1, cfg.num_deeps + 1):
+                x_deep = deep_fn(params["deep"][f"net_{n}"], deep_in, dropout_rates=rates,
+                                 train=train, generator=generator)
 
     return _assemble(cfg, params, first_order, second_order, x_deep)
 

@@ -8,12 +8,16 @@ as the JAX package traces one executable for each shape with ``jax.jit``;
 every request is then a copy into the graph's input buffers, one replay and
 one copy of the logits back (:meth:`Predictor.replay` is the same without the
 host copies, on tensors already on the device). On the CPU the forward runs
-eagerly.
+eagerly. A request's spans (:mod:`..utils.profiling`): ``request``, and in it
+``request.copy_in`` (on the card the copy into the graph's input buffers),
+``request.launch`` (the replay, or the eager forward), both in
+:meth:`Predictor.replay`, ``request.wait`` (with tracing on only: the host
+waits for the card) and ``request.copy_out`` (the logits to host numpy).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -24,7 +28,7 @@ from ..config import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
 from ..ops.embedding import packed_lookup_serving
-from ..utils import cuda_graph
+from ..utils import cuda_graph, profiling
 from .compaction import CompactModel, compact_forward
 
 LAYOUTS = ("auto", "grouped", "flat", "super")
@@ -78,25 +82,41 @@ class Predictor:
                                                           lookup_fn=packed_lookup_serving)
         self._graphs = cuda_graph.Graphs()
 
-    @torch.inference_mode()
-    def replay(self, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
-        """The logits of a batch as a tensor on the device. On the card the
-        batch is copied into the static buffers of its shape's CUDA graph
-        (captured on the shape's first request), the graph is replayed and
-        its output tensor is returned: the next request of that shape
-        overwrites it. On the CPU the eager forward."""
+    def _loaded(self, xi: torch.Tensor, xv: torch.Tensor) -> Callable[[], torch.Tensor]:
+        """What runs the forward on ``xi``, ``xv``: on the card the replay of
+        the shape's CUDA graph (captured on the shape's first request), the
+        batch already copied into its static buffers; on the CPU the eager
+        forward."""
         if self.device.type != "cuda":
-            return self._fn(self._model, xi, xv)
+            return lambda: self._fn(self._model, xi, xv)
         shapes = (tuple(xi.shape), tuple(xv.shape))
         graph = self._graphs.get(shapes, (), lambda: cuda_graph.Graphed(
             lambda a, b: self._fn(self._model, a, b), (xi, xv), device=self.device,
             name=f"the Predictor's forward of a {type(self._model).__name__} at {shapes}"))
-        return graph(xi, xv)
+        graph.load(xi, xv)
+        return graph.replay
+
+    @torch.inference_mode()
+    def replay(self, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        """The logits of a batch as a tensor on the device. On the card the
+        batch is copied into the static buffers of its shape's CUDA graph,
+        the graph is replayed and its output tensor is returned: the next
+        request of that shape overwrites it. On the CPU the eager forward."""
+        with profiling.named_scope("request.copy_in"):
+            forward = self._loaded(xi, xv)
+        with profiling.named_scope("request.launch"):
+            return forward()
 
     def logits(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
-        xi = torch.from_numpy(np.ascontiguousarray(xi, np.int32))
-        xv = torch.from_numpy(np.ascontiguousarray(xv, np.float32))
-        return self.replay(xi, xv).cpu().numpy()
+        with profiling.named_scope("request", unit=True):
+            out = self.replay(torch.from_numpy(np.ascontiguousarray(xi, np.int32)),
+                              torch.from_numpy(np.ascontiguousarray(xv, np.float32)))
+            if profiling.enabled():     # else the copy out waits for the card
+                with profiling.named_scope("request.wait"):
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+            with profiling.named_scope("request.copy_out"):
+                return out.cpu().numpy()
 
     def predict_proba(self, xi: np.ndarray, xv: np.ndarray) -> np.ndarray:
         return 1.0 / (1.0 + np.exp(-self.logits(xi, xv).astype(np.float64)))

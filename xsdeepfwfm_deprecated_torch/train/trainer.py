@@ -86,7 +86,7 @@ from ..models import deepfwfm
 from ..ops.mlp import BatchShard
 from ..parallel import embedding_sharding as es
 from ..parallel import mesh as mesh_mod
-from ..utils import cuda_graph, debug
+from ..utils import cuda_graph, debug, profiling
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -229,8 +229,10 @@ def loss_and_grads(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConf
     leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
     it = iter(leaves)
     live = _tree.tree_map(lambda _: next(it), params)
-    loss = batch_loss(live, batch, mcfg, tcfg, **loss_kw)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with profiling.named_scope("step.forward"):
+        loss = batch_loss(live, batch, mcfg, tcfg, **loss_kw)
+    with profiling.named_scope("step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(leaves, grads)]
 
@@ -242,11 +244,13 @@ def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
     """One optimizer step, in place on ``params`` and ``opt_state``. Returns
     the loss as a 0-d tensor on the device. ``reduce`` sums the gradients
     over the ranks of a sharded fit, in place, before the optimizer (and its
-    L2) sees them."""
+    L2) sees them. Its spans (:mod:`..utils.profiling`) are ``step.forward``,
+    ``step.backward`` and ``step.optimizer``; inside a CUDA graph, device time."""
     loss, grads = loss_and_grads(params, batch, mcfg, tcfg, **loss_kw)
     if reduce is not None:
         reduce(grads)
-    optimizer.update(params, grads, opt_state)
+    with profiling.named_scope("step.optimizer"):
+        optimizer.update(params, grads, opt_state)
     return loss
 
 
@@ -337,6 +341,12 @@ class MultiStep:
                  teacher_k: Optional[torch.Tensor] = None, adaptive: Any = None, *,
                  k_real: Optional[int] = None,
                  count_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+        with profiling.named_scope("train.step", unit=True):
+            return self._call(params, opt_state, xi_k, xv_k, y_k, mask_k, generator, teacher_k,
+                              adaptive, k_real, count_k)
+
+    def _call(self, params, opt_state, xi_k, xv_k, y_k, mask_k, generator, teacher_k, adaptive,
+              k_real, count_k) -> torch.Tensor:
         if (teacher_k is None) == self.use_kd:
             raise ValueError("teacher_k is the KD multi-step's input, and only its")
         if (adaptive is None) == (self.prune_kw is not None):
@@ -462,6 +472,10 @@ class PruneRefresh:
         self._graphs = cuda_graph.Graphs()
 
     def __call__(self, params: Dict, adaptive: float) -> None:
+        with profiling.named_scope("train.refresh"):
+            self._call(params, adaptive)
+
+    def _call(self, params: Dict, adaptive: float) -> None:
         device = _tree.leaves(params)[0].device
         target = torch.full((), float(adaptive), dtype=torch.float32, device=device)
         if not (cuda_graph.on_card(device) and self.capture):

@@ -24,6 +24,14 @@ each input shape and then replayed, one launch for all of its kernels.
   ``Mesh.traffic``. The warm-up and the capture are set-up, like a compile,
   and leave every counter as they found it; each replay adds what the
   capture recorded.
+* spans (:mod:`.profiling`): a capture made with tracing on records each
+  span opened inside it as a pair of timing events in the graph, and each
+  replay's device time per span is read into the program's spans
+  (:class:`.profiling.DeviceSpans`). Whether tracing is on is part of the key
+  of :meth:`Graphs.get`, so turning it on captures a traced variant beside a
+  graph captured with it off, and turning it off goes back to that graph.
+  :data:`CAPTURES` logs every capture that :class:`Graphs` makes, by name and
+  time, which :func:`.profiling.counters` reads; a replay counts nothing.
 
 A graph may hold ``torch.distributed`` collectives where the backend can
 capture them (NCCL; not gloo, whose collectives go through the host): the
@@ -39,6 +47,7 @@ calls on the card. On the CPU nothing is captured: the callers ask
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
@@ -47,6 +56,7 @@ import torch
 from .. import _tree
 from ..ops.cuda.int8_mlp import int8_mlp
 from ..ops.mlp import BatchShard
+from . import profiling
 
 KERNELS = (int8_mlp,)    # the wrappers of csrc/, each counting its launches
 
@@ -107,6 +117,7 @@ class Log(Counter):
 
 
 COUNTERS: Tuple[Counter, ...] = tuple(Launches(k) for k in KERNELS)
+CAPTURES: List[Tuple[str, int]] = []    # (graph name, perf_counter_ns) of each capture of Graphs
 
 
 def on_card(device: torch.device) -> bool:
@@ -129,7 +140,8 @@ class Graphs:
     (:func:`state_key`) has moved, which frees the old capture's memory. A
     held graph keeps the state it was captured on alive, so state that was
     replaced has moved on every rank of a mesh alike, and the ranks capture
-    (with their collectives) together."""
+    (with their collectives) together. A graph captured with tracing on is
+    held apart from the one captured with it off."""
 
     def __init__(self):
         self._held: Dict[Hashable, Tuple[Tuple, "Graphed"]] = {}
@@ -138,10 +150,12 @@ class Graphs:
         return len(self._held)
 
     def get(self, shapes: Hashable, state: Tuple, capture: Callable[[], "Graphed"]) -> "Graphed":
-        held = self._held.get(shapes)
+        key = (shapes, profiling.enabled())
+        held = self._held.get(key)
         if held is None or held[0] != state:
-            self._held.pop(shapes, None)
-            held = self._held[shapes] = (state, capture())
+            self._held.pop(key, None)
+            held = self._held[key] = (state, capture())
+            CAPTURES.append((held[1].name, time.perf_counter_ns()))
         return held[1]
 
 
@@ -173,7 +187,9 @@ class Graphed:
     ``counters`` are what ``fn`` counts besides the kernels' launches;
     ``barrier`` runs between the warm-up and the capture (a mesh's, where
     ``fn`` holds collectives). ``outputs`` is what ``fn`` returned during
-    capture, ``captured`` what each counter recorded."""
+    capture, ``captured`` what each counter recorded, ``device_spans`` the
+    timing events of the spans opened during a capture made with tracing on
+    (None without)."""
 
     def __init__(self, fn: Callable[..., Any], inputs: Sequence[torch.Tensor], *,
                  device: torch.device, name: str,
@@ -200,8 +216,11 @@ class Graphed:
             for gen in generators:
                 self.graph.register_generator_state(_torch_generator(gen))
             start = [c.mark() for c in self.counters]
-            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-                self.outputs = fn(*self.inputs)
+            with profiling.capturing(device) as spans:
+                with torch.cuda.graph(self.graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = fn(*self.inputs)
+            self.device_spans = spans if spans is not None and spans.scopes else None
             self.captured = tuple(c.since(m) for c, m in zip(self.counters, start))
         except RuntimeError as err:
             raise RuntimeError(f"{name} cannot be captured into a CUDA graph: {err}") from err
@@ -211,12 +230,21 @@ class Graphed:
 
     def replay(self) -> Any:
         """Replay on the inputs already in the static buffers."""
+        if self.device_spans is not None:
+            self.device_spans.before_replay()
         self.graph.replay()
         for c, added in zip(self.counters, self.captured):
             c.add(added)
+        if self.device_spans is not None:
+            self.device_spans.replayed()
         return self.outputs
 
-    def __call__(self, *inputs: torch.Tensor) -> Any:
+    def load(self, *inputs: torch.Tensor) -> None:
+        """Copy ``inputs`` into the static buffers (non-blocking, on the
+        current stream)."""
         for buf, t in zip(self.inputs, inputs):
             buf.copy_(t, non_blocking=True)
+
+    def __call__(self, *inputs: torch.Tensor) -> Any:
+        self.load(*inputs)
         return self.replay()
