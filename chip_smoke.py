@@ -125,13 +125,20 @@ Phases, each printed on its own line:
      steps: graphed and eager fits in turns under deterministic algorithms, parameters and
      losses equal bit for bit, one replay a step (counted); the test AUC within 1e-5 of the
      CPU port's fit; ms a step graphed and eager by the host clock and device time.
+ 24. the fused Adam kernel alone at the leaves of the benchmark's two configurations (the
+     Criteo flagship, 13,740,101 values, and the Avazu model, 31,209,993): one step equal to
+     the plain `_foreach` version bit for bit, then device time as a CUDA graph of 20
+     calls (median of 10) beside its bound (28 B a value at 3.35 TB/s), the plain version
+     and torch._fused_adam_ (a yardstick only; the port never calls it).
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17 to 23 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17 to 24 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
 three arms' AUCs within 2e-4 (the 41.3M-row run's serving check), without the result lines.
-then one JSON line of per-kernel results, the card's line, and as the last line
+then one JSON line of per-kernel results (the fused Adam kernel's launches by phase group,
+graph replays counted and a sharded rank's added: above 0 on every path that trains, 0 on
+the serving phases 4 to 7 and the timers' phase 21), the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX.
@@ -149,6 +156,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -159,12 +167,13 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21), (22, 22), (23, 23))
+                (21, 21), (22, 22), (23, 23), (24, 24))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
 REQUEST_SIZES = (BATCH, BATCH, BATCH, 1, 1000)
 TOL = 1e-4   # fp32: float32 sums in another order; int8: epilogue rounding
+BENCH_CONFIGS = Path(__file__).resolve().parent / "port_bench" / "configs"
 
 
 def phase(n: int, msg: str) -> None:
@@ -1102,10 +1111,12 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
 
     from xsdeepfwfm_deprecated_torch import _tree
     from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
     from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard
     from xsdeepfwfm_deprecated_torch.parallel import mesh as mesh_mod
     from xsdeepfwfm_deprecated_torch.train import trainer
 
+    fused_adam.launches = 0
     quiet = logging.getLogger(f"chip_smoke.rank{rank}")
     quiet.addHandler(logging.NullHandler())
     quiet.propagate = False
@@ -1189,6 +1200,7 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
     out["grouped"] = grouped_rank(rank, device, seed, cfg, mesh, gathered, quiet, profile)
     out["grouped_s"] = time.perf_counter() - t0
     out["rank_s"] = time.perf_counter() - t_rank
+    out["adam_launches"] = fused_adam.launches     # this rank's steps: fits, KD, QAT, groups
     return out
 
 
@@ -1936,8 +1948,11 @@ def sharded_phase(args, cfg, card: str) -> dict:
     grouped_checks(results, backend, one_group_ms, where)
     if backend == "nccl":
         torchrun_clis(card)
+    rank_adam = [r["adam_launches"] for r in results]
+    check(all(n > 0 for n in rank_adam), f"fused Adam launches by rank: {rank_adam}")
     return {"launches_sharded_path": launches + qat_launches,
-            "max_abs_err_sharded": max(tower_err, qat_tower_err)}
+            "max_abs_err_sharded": max(tower_err, qat_tower_err),
+            "rank_adam_launches": sum(rank_adam)}
 
 
 SCALE_ROWS = 1_000_000
@@ -3283,6 +3298,66 @@ def last_forms_phase(args, cfg, card: str) -> None:
           f"{g_ms:.3f} ms by the host clock, {g_busy} | eager {e_ms:.3f} ms, {e_busy} {where}")
 
 
+def optimizer_phase(args, card: str) -> dict:
+    """Phase 24: the fused Adam kernel alone at the leaves of the benchmark's
+    two configurations, with their L2: one step against the plain version
+    from equal states, bit for bit, then the device time of a CUDA graph of
+    20 calls (median of 10) beside the bound, the plain version and
+    ``torch._fused_adam_``. Returns the kernels line's entries."""
+    from port_bench.program import model_config
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import adam_reference, fused_adam
+    from xsdeepfwfm_deprecated_torch.train.trainer import _TABLE_GROUPS
+
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    out = {}
+    for name in ("deepfwfm_criteo", "deepfwfm_avazu"):
+        conf = json.loads((BENCH_CONFIGS / f"{name}.json").read_text())
+        named = list(_tree.named_leaves(deepfwfm.init_params(
+            torch.Generator().manual_seed(args.seed), model_config(conf), device=dev)))
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 24)
+        p = [t for _, t in named]
+        g = [torch.randn(t.shape, generator=gen, device=dev) * 1e-2 for t in p]
+        mu = [torch.randn(t.shape, generator=gen, device=dev) * 1e-3 for t in p]
+        nu = [torch.rand(t.shape, generator=gen, device=dev) * 1e-6 for t in p]
+        flush = [n.split("/")[0] in _TABLE_GROUPS for n, _ in named]
+        count = torch.full((), 7, dtype=torch.int32, device=dev)
+        bc1, bc2 = 1 - torch.pow(0.9, count), 1 - torch.pow(0.999, count)
+        kw = dict(lr=conf["learning_rate"], wd=conf["weight_decay"], b1=0.9, b2=0.999, eps=1e-8)
+        n_values = sum(t.numel() for t in p)
+
+        clone = lambda ts: [t.clone() for t in ts]   # noqa: E731
+        got, want = (clone(p), clone(mu), clone(nu)), (clone(p), clone(mu), clone(nu))
+        fused_adam(got[0], g, got[1], got[2], flush, bc1, bc2, **kw)
+        adam_reference(want[0], g, want[1], want[2], flush, bc1, bc2, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for x, y in zip(got, want) for a, b in zip(x, y))
+        check(same, f"{name}: the fused Adam step differs from the plain version")
+        del got, want
+
+        kernel_ms = graph_ms(lambda: fused_adam(p, g, mu, nu, flush, bc1, bc2, **kw))
+        plain_ms = graph_ms(lambda: adam_reference(p, g, mu, nu, flush, bc1, bc2, **kw))
+        steps = [torch.full((), 7.0, device=dev) for _ in p]
+        library_ms = graph_ms(lambda: torch._fused_adam_(
+            p, g, mu, nu, [], steps, lr=kw["lr"], beta1=0.9, beta2=0.999,
+            weight_decay=kw["wd"], eps=1e-8, amsgrad=False, maximize=False))
+        bound_ms = 28 * n_values / HBM_BYTES_PER_S * 1e3
+        phase(24, f"fused Adam at {name}'s {len(p)} leaves, {n_values:,} values: one step "
+                  f"equal to the plain version bit for bit: {same} {where}")
+        print(f"  fused_adam kernel {kernel_ms:.4f} ms | bound {bound_ms:.4f} ms (28 B a value "
+              f"at 3.35 TB/s; {100 * bound_ms / kernel_ms:.1f}% of it, "
+              f"{28 * n_values / kernel_ms / 1e9:.3f} TB/s) | plain _foreach {plain_ms:.4f} ms | "
+              f"torch._fused_adam_ {library_ms:.4f} ms (yardstick) {where}")
+        out[name] = {"kernel_ms": round(kernel_ms, 4), "bound_ms": round(bound_ms, 4),
+                     "plain_ms": round(plain_ms, 4), "library_ms": round(library_ms, 4)}
+        del p, g, mu, nu, steps
+        torch.cuda.empty_cache()
+    return {"device_ms_by_config": out}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -3510,7 +3585,8 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23), without the result lines")
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24), without the result "
+                    "lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
                          "the fused tower's launches and its max |diff| against the plain "
@@ -3569,6 +3645,8 @@ def main(argv=None) -> int:
                            (23, last_forms_phase)):
             if first in groups:
                 run(args, cfg, card)
+        if 24 in groups:
+            optimizer_phase(args, card)
         print(card)
         return 0
     if args.parity:
@@ -3576,35 +3654,52 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
+    # each phase group's fused Adam launches, a rank's included: the kernels line's
+    from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
+    adam = {}
+
+    def counting_adam(path: str, trains: bool, run, *run_args) -> dict:
+        fused_adam.launches = 0
+        out = run(*run_args) or {}
+        n = fused_adam.launches + out.pop("rank_adam_launches", 0)
+        check(n > 0 if trains else n == 0, f"the {path} path made {n} fused Adam launches")
+        adam[f"launches_{path}_path"] = n
+        return out
+
     # ---- 4-7. serving
-    served = serving_phases(args, cfg, card, params_cpu, reqs)
+    served = counting_adam("serving", False, serving_phases, args, cfg, card, params_cpu, reqs)
 
     # ---- 8-11. the training path
-    trained = training_phases(args, cfg, card)
+    trained = counting_adam("training", True, training_phases, args, cfg, card)
 
     # ---- 12-16. the deploy path through the CLIs
-    deployed = deploy_phases(args, cfg, card)
+    deployed = counting_adam("cli", True, deploy_phases, args, cfg, card)
 
     # ---- 17. sharded training
-    sharded = sharded_phase(args, cfg, card)
+    sharded = counting_adam("sharded", True, sharded_phase, args, cfg, card)
 
     # ---- 18. quality at scale
-    scaled = scale_phase(card)
+    scaled = counting_adam("scale", True, scale_phase, card)
 
     # ---- 19. the bin input pipeline
-    piped = pipeline_phase(card)
+    piped = counting_adam("pipeline", True, pipeline_phase, card)
 
     # ---- 20. the compiled dispatch, graphed against eager
-    dispatched = dispatch_phase(args, cfg, card)
+    dispatched = counting_adam("dispatch", True, dispatch_phase, args, cfg, card)
 
     # ---- 21. the compiled timers, beside the eager readings
-    timed_path = timers_phase(args, cfg, card)
+    timed_path = counting_adam("timers", False, timers_phase, args, cfg, card)
 
     # ---- 22. the per-batch compiled dispatch: fit at steps_per_call=1, graphed against eager
-    per_batch = per_batch_phase(args, cfg, card)
+    per_batch = counting_adam("per_batch", True, per_batch_phase, args, cfg, card)
 
     # ---- 23. the last compiled forms: the hash-MLP baseline's fit, graphed against eager
-    last_forms_phase(args, cfg, card)
+    counting_adam("hash_mlp", True, last_forms_phase, args, cfg, card)
+    print("  fused Adam launches by path (graph replays counted): "
+          + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in adam.items()))
+
+    # ---- 24. the fused Adam kernel alone, beside its bound
+    optimized = optimizer_phase(args, card)
 
     # ---- result lines
     kernels = [{
@@ -3612,7 +3707,10 @@ def main(argv=None) -> int:
         "source": "xsdeepfwfm_deprecated_torch/csrc/int8_mlp.cu",
         "replaces": "xsdeepfwfm_deprecated_tpu/ops/pallas/int8_mlp.py:26",
         **served, **trained, **deployed, **sharded, **scaled, **piped, **dispatched,
-        **timed_path, **per_batch}]
+        **timed_path, **per_batch},
+        {"name": "fused_adam", "route": "cuda",
+         "source": "xsdeepfwfm_deprecated_torch/csrc/fused_adam.cu", "replaces": None,
+         **adam, **optimized}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -83,6 +83,7 @@ from ..config import ModelConfig, TrainConfig
 from ..data import batching
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm
+from ..ops.cuda.fused_adam import fused_adam
 from ..ops.mlp import BatchShard
 from ..parallel import embedding_sharding as es
 from ..parallel import mesh as mesh_mod
@@ -93,13 +94,6 @@ from . import metrics as M
 
 _SLOTS = {"adam": ("mu", "nu"), "rmsp": ("nu",), "adag": ("sum_of_squares",)}
 _TABLE_GROUPS = ("emb1", "emb2", "ffm1", "ffm2")   # the parameter groups that hold table rows
-
-
-def _flush_subnormals_(moments: List[torch.Tensor]) -> None:
-    """Zero the subnormal values in place, as XLA (and the TPU) computes
-    every result: PyTorch keeps them."""
-    for m in moments:
-        m.masked_fill_(m.abs() < torch.finfo(m.dtype).tiny, 0)
 
 
 class Optimizer:
@@ -145,29 +139,24 @@ class Optimizer:
         """One step. ``grads`` are in the order of ``_tree.leaves(params)``."""
         p = _tree.leaves(params)
         slots = self._slots(state)
-        g = torch._foreach_add(grads, p, alpha=self.wd) if self.wd else list(grads)
         if self.kind == "adam":
             b1, b2, eps = 0.9, 0.999, 1e-8
-            mu, nu = _tree.leaves(slots["mu"]), _tree.leaves(slots["nu"])
             count = slots["count"].add_(1)
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, g, alpha=1 - b1)
             # A table row that no batch reads has L2 as its only gradient, so its
             # first moment decays into the subnormals. There optax under XLA reads 0
             # and the row stops moving (at |w| ~ 1e-31); with the subnormals kept it
             # creeps on towards 1e-38, below the prune search's floor (its largest
             # magnitude * 2^-120), and one refresh zeroes every such row, far past
             # the target. Every other value gets a loss gradient each step.
-            _flush_subnormals_([m for (name, _), m in zip(_tree.named_leaves(params), mu)
-                                if name.split("/")[0] in _TABLE_GROUPS])
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - b2)
-            upd = torch._foreach_div(mu, 1 - torch.pow(b1, count))
-            den = torch._foreach_div(nu, 1 - torch.pow(b2, count))
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, eps)
-            torch._foreach_div_(upd, den)
-        elif self.kind == "rmsp":
+            flush = [name.split("/")[0] in _TABLE_GROUPS
+                     for name, _ in _tree.named_leaves(params)]
+            # one kernel launch on the card; the `_foreach` passes on the CPU
+            fused_adam(p, grads, _tree.leaves(slots["mu"]), _tree.leaves(slots["nu"]), flush,
+                       1 - torch.pow(b1, count), 1 - torch.pow(b2, count), lr=self.lr,
+                       wd=self.wd, b1=b1, b2=b2, eps=eps)
+            return
+        g = torch._foreach_add(grads, p, alpha=self.wd) if self.wd else list(grads)
+        if self.kind == "rmsp":
             decay, eps = 0.99, 1e-8
             nu = _tree.leaves(slots["nu"])
             torch._foreach_mul_(nu, decay)

@@ -54,11 +54,12 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tupl
 import torch
 
 from .. import _tree
+from ..ops.cuda.fused_adam import fused_adam
 from ..ops.cuda.int8_mlp import int8_mlp
 from ..ops.mlp import BatchShard
 from . import profiling
 
-KERNELS = (int8_mlp,)    # the wrappers of csrc/, each counting its launches
+KERNELS = (int8_mlp, fused_adam)    # the wrappers of csrc/, each counting its launches
 
 
 class Counter:
