@@ -106,7 +106,8 @@ def test_grouped_mesh_fit_matches_jax_mesh_fit(ranks):
     ``steps_per_call`` from the same parameters: the gathered parameters and
     the train metrics."""
     cfg, params, xi, xv, y = R.case(dropout=False)
-    est = JT.DeepFMEstimator(JConfig(**dataclasses.asdict(cfg)),
+    est = JT.DeepFMEstimator(JConfig(**{f.name: getattr(cfg, f.name)
+                                        for f in dataclasses.fields(JConfig)}),
                              JTrain(**R.FIT_KW, mesh_data=2, mesh_model=2, exchange=R.JAX_EXCHANGE,
                                     steps_per_call=R.K, table_layout="flat"), logger=QUIET)
     est.params = _tree.tree_map(lambda t: jnp.asarray(t.numpy()), params)

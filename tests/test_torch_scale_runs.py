@@ -121,7 +121,8 @@ def same_init(monkeypatch):
 
     def init_j(self, seed=None):
         init, cls = port_init[type(self).model_init]
-        cfg = cls(**{f.name: getattr(self.mcfg, f.name) for f in dataclasses.fields(cls)})
+        # the JAX config's fields: the port's own (xDeepFM's) keep their defaults
+        cfg = cls(**{f.name: getattr(self.mcfg, f.name) for f in dataclasses.fields(self.mcfg)})
         gen = torch.Generator().manual_seed(self.tcfg.random_seed if seed is None else seed)
         self.params = jax.tree.map(jnp.asarray,
                                    weights.params_to_numpy(init(gen, cfg, device="cpu")))

@@ -77,7 +77,8 @@ def _jax(tree):
 
 
 def _jcfg(cfg):
-    return JConfig(**dataclasses.asdict(cfg))
+    # the JAX package's fields: the port's own (xDeepFM's) hold their defaults here
+    return JConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(JConfig)})
 
 
 def _assemble(results, key, field, n_rows):

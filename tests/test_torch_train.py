@@ -486,16 +486,30 @@ def test_mesh_flags_raise_until_the_sharding_slice():
 
 # ------------------------------------------- own copies of jax-free modules
 
+# the port's own model (xDeepFM): flags and config fields that the JAX package lacks
+PORT_FLAGS = {"use_cin": 0, "cin_layers": "200,200,200"}
+PORT_FIELDS = {"use_cin": False, "cin_layers": ()}
+
+
+def _shared(ns, own):
+    """``ns``'s fields less the port's own, which must hold their defaults."""
+    d = dict(vars(ns))
+    assert {k: d.pop(k) for k in own} == own
+    return d
+
+
 def test_parser_and_configs_match_the_jax_package():
     argv = ["-use_fwlw", "1", "-prune", "1", "-sparse", "0.8", "-qr_emb", "1", "-l2", "1e-6",
             "-steps_per_call", "8", "-table_layout", "flat", "-mesh_data", "1", "-exchange",
             "psum", "-save_model_path", "m", "-table_dtype", "bf16", "-prune_omega", "50"]
     got, want = get_parser().parse_args(argv), j_get_parser().parse_args(argv)
-    assert vars(got) == vars(want)
-    assert vars(get_parser().parse_args([])) == vars(j_get_parser().parse_args([]))
+    assert _shared(got, PORT_FLAGS) == vars(want)
+    assert _shared(get_parser().parse_args([]), PORT_FLAGS) == vars(j_get_parser().parse_args([]))
     t_m, t_t = configs_from_args(got, 6, F_SIZES)
     j_m, j_t = j_configs_from_args(want, 6, F_SIZES)
-    assert vars(t_m) == vars(j_m) and vars(t_t) == vars(j_t)
+    assert _shared(t_m, PORT_FIELDS) == vars(j_m) and vars(t_t) == vars(j_t)
+    # the JAX package's namespace, without the port's flags, builds the same configs
+    assert configs_from_args(want, 6, F_SIZES) == (t_m, t_t)
     assert vars(TTrain()) == vars(JTrain())
     for n_iter in (0, 7, 100, 100000):
         assert TTrain(sparse=0.7).adaptive_sparse(n_iter) == JTrain(sparse=0.7).adaptive_sparse(n_iter)

@@ -98,7 +98,11 @@ def _quantize_deep(deep: Dict) -> Dict:
 def convert(params: Dict, cfg: ModelConfig, mode: str = "dynamic",
             act_scales: Optional[Dict] = None,
             quantize_embeddings: bool = True) -> QuantizedModel:
-    """fp32 params → :class:`QuantizedModel`, on the params' device."""
+    """fp32 params → :class:`QuantizedModel`, on the params' device. A
+    model with ``use_cin`` is refused: the int8 forward has no CIN."""
+    if cfg.use_cin:
+        raise ValueError(f"int8 {mode} conversion does not take use_cin: the quantized "
+                         "forward has no CIN; serve xDeepFM in fp32")
     params_fp = {k: v for k, v in params.items()
                  if k in ("bias", "lw_w", "fwlw_w", "field_cov")}
     tables = {k: params.get(k) for k in ("emb1", "emb2", "ffm1", "ffm2")}

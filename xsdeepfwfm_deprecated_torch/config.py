@@ -11,6 +11,12 @@ results of K = 1. Flags that only choose a TPU layout (``-table_layout``,
 ``-mesh_table_layout``) are accepted and change no result here.
 ``-mesh_data``/``-mesh_model``/``-exchange`` shard a fit over ranks started
 by ``torchrun`` (``parallel/mesh.py``).
+
+One model is the port's own, beside the JAX package's families: xDeepFM
+(``use_cin``, ``-use_cin 1 -cin_layers 200,200,200``; Lian et al., KDD 2018),
+its Compressed Interaction Network over the second-order embeddings with a
+first-order linear part and a bias, with or without the deep tower. Its
+fields and flags are the only ones the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ class ModelConfig:
 
     Exactly one of ``use_logit / use_fm / use_ffm / use_fwfm`` may be set;
     ``use_deep`` composes with any of them (DeepFM / DeepFFM / DeepFwFM) or
-    stands alone.
+    stands alone. ``use_cin`` (xDeepFM, or the CIN alone without
+    ``use_deep``) takes none of the four: its logit is a bias, a first-order
+    linear part (``emb1``) and the CIN's ``cin_layers`` feature maps.
     """
 
     field_size: int
@@ -41,6 +49,8 @@ class ModelConfig:
     use_deep: bool = True
     use_lw: bool = False     # linear weights on the 1st-order term
     use_fwlw: bool = False   # FwFM linear weights from the 2nd-order embeddings
+    use_cin: bool = False    # xDeepFM's Compressed Interaction Network
+    cin_layers: Tuple[int, ...] = ()   # feature maps of each CIN layer, H_1..H_L
 
     h_depth: int = 3
     deep_nodes: int = 400
@@ -68,8 +78,20 @@ class ModelConfig:
         n_shallow = int(self.use_logit) + int(self.use_fm) + int(self.use_ffm) + int(self.use_fwfm)
         if n_shallow > 1:
             raise ValueError("only one of use_logit/use_fm/use_ffm/use_fwfm may be set")
-        if n_shallow == 0 and not self.use_deep:
-            raise ValueError("choose at least one of (logit, fm, ffm, fwfm, deep)")
+        if n_shallow == 0 and not (self.use_deep or self.use_cin):
+            raise ValueError("choose at least one of (logit, fm, ffm, fwfm, deep, cin)")
+        if self.use_cin:
+            if n_shallow:
+                raise ValueError("use_cin brings its own linear part: set none of "
+                                 "use_logit/use_fm/use_ffm/use_fwfm")
+            if not self.cin_layers or min(self.cin_layers) < 1:
+                raise ValueError(f"use_cin needs cin_layers of positive widths, "
+                                 f"got {self.cin_layers!r}")
+            if self.quantization_aware:
+                raise ValueError("quantization-aware training does not take use_cin: "
+                                 "its fake-quant tower has no CIN")
+        elif self.cin_layers:
+            raise ValueError("cin_layers is given without use_cin")
         if len(self.feature_sizes) != self.field_size:
             raise ValueError(
                 f"feature_sizes has {len(self.feature_sizes)} entries, expected {self.field_size}")
@@ -80,6 +102,8 @@ class ModelConfig:
 
     @property
     def model_name(self) -> str:
+        if self.use_cin:
+            return "xDeepFM" if self.use_deep else "CIN"
         if self.use_logit:
             return "LR"
         shallow = ("FM" if self.use_fm else "FFM" if self.use_ffm
@@ -104,12 +128,15 @@ class ModelConfig:
     def needs_emb2(self) -> bool:
         """Whether the 2nd-order (dim-E) table exists: fm/fwfm use it, and
         deep-only uses it as the tower input."""
-        return self.use_fm or self.use_fwfm or (self.use_deep and not self.use_ffm)
+        return (self.use_fm or self.use_fwfm or self.use_cin
+                or (self.use_deep and not self.use_ffm))
 
     @property
     def needs_emb1(self) -> bool:
-        """The 1st-order (dim-1) table exists unless fwlw replaces it."""
-        return (self.use_logit or self.use_fm or self.use_fwfm) and not self.use_fwlw
+        """The 1st-order (dim-1) table exists unless fwlw replaces it; the CIN's
+        linear part always reads it."""
+        return self.use_cin or ((self.use_logit or self.use_fm or self.use_fwfm)
+                                and not self.use_fwlw)
 
 
 @dataclass(frozen=True)
@@ -255,7 +282,21 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-debug_nans", default=0, type=int,
                    help="Trap NaN/Inf during fit: autograd anomaly detection and a finite "
                         "check of every step's loss (one device sync a step)")
+    # the port's own model, which the JAX package does not have
+    p.add_argument("-use_cin", default=0, type=int,
+                   help="xDeepFM's Compressed Interaction Network (with -use_deep: xDeepFM); "
+                        "set -use_fwfm 0 and the other shallow terms off")
+    p.add_argument("-cin_layers", default="200,200,200", type=str,
+                   help="Feature maps of each CIN layer, comma-separated (with -use_cin 1)")
     return p
+
+
+def _cin_layers(pars) -> Tuple[int, ...]:
+    """``-cin_layers`` as a tuple where ``-use_cin`` is set, else (). A
+    namespace without the flags (the JAX package's parser) has no CIN."""
+    if not getattr(pars, "use_cin", 0):
+        return ()
+    return tuple(int(h) for h in pars.cin_layers.split(","))
 
 
 def configs_from_args(pars, field_size: int, feature_sizes) -> Tuple[ModelConfig, TrainConfig]:
@@ -272,6 +313,8 @@ def configs_from_args(pars, field_size: int, feature_sizes) -> Tuple[ModelConfig
         use_deep=bool(pars.use_deep),
         use_lw=bool(pars.use_lw),
         use_fwlw=bool(pars.use_fwlw),
+        use_cin=bool(getattr(pars, "use_cin", 0)),
+        cin_layers=_cin_layers(pars),
         h_depth=pars.h_depth,
         deep_nodes=pars.deep_nodes,
         num_deeps=pars.num_deeps,

@@ -6,6 +6,9 @@ FFM / FwFM / DeepFM / DeepFFM / DeepFwFM / deep-only, with ``use_lw`` /
 layout and leaf names (``emb2/dense``, ``deep/net_1/layers/0/w`` as
 ``(in, out)``, ``deep/net_1/fc_w``, ``field_cov``, ``fwlw_w``, ``lw_w``,
 ``bias``). With ``num_deeps > 1`` every net runs and only the last counts.
+``use_cin`` adds xDeepFM (the port's own; the JAX package has none): a
+``cin`` subtree of ``layers/{k-1}/w`` (H_k, H_{k-1}·F) for CIN layer k and
+``fc_w`` (ΣH_k, 1), run on the second-order lookup that the tower reads too.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     tdt = torch.bfloat16 if cfg.table_dtype == "bf16" else dtype
     params: Dict = {}
 
-    if cfg.use_shallow:
+    if cfg.use_shallow or cfg.use_cin:
         params["bias"] = torch.tensor([0.01], dtype=dtype, device=device)
     if cfg.needs_emb1:
         params["emb1"] = emb_ops.init_tables(generator, spec, 1, 1.0, tdt, device)
@@ -77,7 +80,22 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
         params["deep"] = {
             f"net_{n}": mlp_ops.init_mlp(generator, f * e, cfg.deep_layers, head, dtype, device)
             for n in range(1, cfg.num_deeps + 1)}
+    if cfg.use_cin:
+        params["cin"] = init_cin(generator, f, cfg.cin_layers, dtype, device)
     return params
+
+
+def init_cin(generator: Optional[torch.Generator], fields: int, layers, dtype: torch.dtype,
+             device: torch.device) -> Dict:
+    """The CIN's leaves, Glorot-scaled ``N(0,1)·sqrt(2/(fan_in+fan_out))``:
+    each layer's (H_k, H_{k-1}·F) matrix, H_0 = F, and the (ΣH_k, 1) head."""
+    dims = (fields,) + tuple(layers)
+    ws = [scaled_normal(generator, (h, hp * fields), (2.0 / (hp * fields + h)) ** 0.5,
+                        dtype, device) for hp, h in zip(dims[:-1], dims[1:])]
+    total = sum(layers)
+    return {"layers": [{"w": w} for w in ws],
+            "fc_w": scaled_normal(generator, (total, 1), (2.0 / (total + 1)) ** 0.5,
+                                  dtype, device)}
 
 
 LookupFn = Callable[[Dict, PackedEmbeddingSpec, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -97,7 +115,14 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
     b = xi.shape[0]
     shallow_drop = train and cfg.is_shallow_dropout
 
-    first_order = second_order = emb2 = pair_emb = x_deep = None
+    first_order = second_order = emb2 = pair_emb = x_deep = cin = None
+    if cfg.use_cin:     # xDeepFM: the linear part, then the CIN on the shared lookup
+        first_order = mlp_ops.dropout(generator, lookup(params["emb1"], spec, xi, xv)[..., 0],
+                                      cfg.dropout_shallow[0], shallow_drop)
+        emb2 = lookup(params["emb2"], spec, xi, xv)                             # (B, F, E)
+        with prof.named_scope(prof.SCOPE_CIN):
+            cin = inter_ops.cin_forward(emb2, [layer["w"] for layer in params["cin"]["layers"]])
+
     if cfg.use_logit or cfg.use_fm or cfg.use_fwfm:
         if not cfg.use_fwlw:
             with prof.named_scope(prof.SCOPE_FM):
@@ -145,12 +170,13 @@ def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, 
                 x_deep = deep_fn(params["deep"][f"net_{n}"], deep_in, dropout_rates=rates,
                                  train=train, generator=generator)
 
-    return _assemble(cfg, params, first_order, second_order, x_deep)
+    return _assemble(cfg, params, first_order, second_order, x_deep, cin)
 
 
 def _assemble(cfg: ModelConfig, params_fp: Dict, first_order, second_order,
-              x_deep) -> torch.Tensor:
-    """Sum the logit's terms; shared by the fp32 and the int8 forward."""
+              x_deep, cin=None) -> torch.Tensor:
+    """Sum the logit's terms; shared by the fp32 and the int8 forward. ``cin``
+    is the CIN's p⁺ (B, ΣH_k), which the head ``cin/fc_w`` weighs."""
     if (cfg.use_fm or cfg.use_fwfm) and cfg.use_lw:
         first_order = first_order @ params_fp["lw_w"]                           # (B, 1)
     bias = params_fp["bias"][0] if "bias" in params_fp else 0.01
@@ -159,6 +185,8 @@ def _assemble(cfg: ModelConfig, params_fp: Dict, first_order, second_order,
     total = 0.0
     if cfg.use_fm or cfg.use_fwfm or cfg.use_ffm:
         total = first_order.sum(dim=1) + second_order.sum(dim=1)
+    if cfg.use_cin:
+        total = first_order.sum(dim=1) + (cin @ params_fp["cin"]["fc_w"])[:, 0]
     if cfg.use_deep:
         total = total + x_deep.sum(dim=1)
     return total + bias

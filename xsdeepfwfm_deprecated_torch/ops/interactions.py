@@ -1,14 +1,19 @@
-"""Pairwise-interaction ops: FM, FwFM, FFM in contraction form.
+"""Pairwise-interaction ops: FM, FwFM, FFM in contraction form, and xDeepFM's CIN.
 
-Port of ``xsdeepfwfm_deprecated_tpu/ops/interactions.py:26-75``. None of them
-materializes the ``(F, F, B, E)`` outer product. Float32 matmuls run in full
-float32 (TF32 off, set by :func:`..device.resolve_device`), as the JAX ops'
-``precision="highest"``.
+Port of ``xsdeepfwfm_deprecated_tpu/ops/interactions.py:26-75``. None of the
+pairwise ops materializes the ``(F, F, B, E)`` outer product. Float32 matmuls
+run in full float32 (TF32 off, set by :func:`..device.resolve_device`), as the
+JAX ops' ``precision="highest"``. :func:`cin_forward` is the port's own (the
+JAX package has no CIN).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
+
+from ..utils import profiling as prof
 
 
 def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
@@ -47,3 +52,23 @@ def ffm_second_order(emb_pairs: torch.Tensor) -> torch.Tensor:
     iu = torch.triu(torch.ones((f, f), dtype=emb_pairs.dtype, device=emb_pairs.device),
                     diagonal=1)
     return torch.einsum("bije,ij->be", prod, iu)
+
+
+def cin_forward(x0: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """xDeepFM's Compressed Interaction Network (Lian et al., KDD 2018, Eq. 6
+    to 8): (B, m, D) field embeddings X⁰ and one (H_k, H_{k-1}·m) matrix a
+    layer → p⁺ (B, ΣH_k), the sum over D of every feature map of every layer.
+
+    ``X^k[h, d] = Σ_{i,j} W^k[h, i·m + j] · X^{k-1}[i, d] · X⁰[j, d]``, with no
+    bias and no activation; every map goes to the output and to the next
+    layer. A layer is one GEMM with M = B·D: its outer products laid out as
+    (B·D, H_{k-1}·m) times W_kᵀ. Each layer is a span ``CIN - Layer {k}``."""
+    b, m, d = x0.shape
+    x0t = x0.transpose(1, 2)                                     # (B, D, m)
+    h, pooled = x0t, []
+    for k, w in enumerate(weights, start=1):
+        with prof.named_scope(f"CIN - Layer {k}"):
+            z = (h.unsqueeze(-1) * x0t.unsqueeze(-2)).reshape(b * d, -1)   # (B·D, H·m)
+            h = (z @ w.T).reshape(b, d, -1)                      # X^k as (B, D, H_k)
+            pooled.append(h.sum(dim=1))
+    return torch.cat(pooled, dim=1)

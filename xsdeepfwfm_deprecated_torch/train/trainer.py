@@ -629,11 +629,15 @@ class DeepFMEstimator:
         """The ``(data, model)`` mesh and the lookup exchange of the
         TrainConfig (``-mesh_data``/``-mesh_model``/``-exchange``); None for
         1x1. Raises a ``ValueError`` that says how to launch when the process
-        group is missing or has another number of ranks."""
+        group is missing or has another number of ranks, and one for a model
+        with ``use_cin``, whose sharded forward has no CIN."""
         tc = self.tcfg
         if tc.mesh_data == 1 and tc.mesh_model == 1:
             self._leave_mesh()
             return None
+        if self.mcfg.use_cin:
+            raise ValueError("a sharded fit does not take use_cin: train xDeepFM on one device "
+                             "(-mesh_data 1 -mesh_model 1)")
         data = None if tc.mesh_data == 0 else tc.mesh_data
         mesh = self.mesh
         if mesh is None or mesh.model != tc.mesh_model or data not in (None, mesh.data):

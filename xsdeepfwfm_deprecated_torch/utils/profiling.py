@@ -69,6 +69,7 @@ SCOPE_OUTER_FM = "FM Outer FM"
 SCOPE_OUTER_FWFM = "FM Outer FwFM"
 SCOPE_SECOND_ORDER = "FM Second Order"
 SCOPE_DEEP = "Deep - Component"
+SCOPE_CIN = "CIN - Component"          # xDeepFM's CIN; a "CIN - Layer {k}" span a layer inside
 
 DEVICE = "device:"     # the name prefix of a span read from a graph's events
 READ_EVERY = 16        # a graph still running at its next replay: one replay in this many is read
