@@ -130,8 +130,14 @@ Phases, each printed on its own line:
      the plain `_foreach` version bit for bit, then device time as a CUDA graph of 20
      calls (median of 10) beside its bound (28 B a value at 3.35 TB/s), the plain version
      and torch._fused_adam_ (a yardstick only; the port never calls it).
+ 25. the prune refresh alone at the Criteo configuration's leaves, as the benchmark's cell
+     refreshes them (40% of the table zero, a block of rows parked at ~1e-31): the
+     kernel's route (csrc/prune_search.cu) equal to the torch path bit for bit, 7 launches
+     a refresh, then device time as a CUDA graph of 20 calls (median of 10) beside its
+     bound (2 x 4 B a pruned value at 3.35 TB/s) and the torch path's 40 passes (the
+     yardstick), a PruneRefresh replay between events, and the refresh's top operations.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17 to 24 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17 to 25 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -167,7 +173,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21), (22, 22), (23, 23), (24, 24))
+                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
@@ -1112,11 +1118,12 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
     from xsdeepfwfm_deprecated_torch import _tree
     from xsdeepfwfm_deprecated_torch.data import batching
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
+    from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
     from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard
     from xsdeepfwfm_deprecated_torch.parallel import mesh as mesh_mod
     from xsdeepfwfm_deprecated_torch.train import trainer
 
-    fused_adam.launches = 0
+    fused_adam.launches = prune_search.launches = 0
     quiet = logging.getLogger(f"chip_smoke.rank{rank}")
     quiet.addHandler(logging.NullHandler())
     quiet.propagate = False
@@ -1201,6 +1208,7 @@ def sharded_rank(rank: int, device, seed: int, cfg, sizes, workdir: str,
     out["grouped_s"] = time.perf_counter() - t0
     out["rank_s"] = time.perf_counter() - t_rank
     out["adam_launches"] = fused_adam.launches     # this rank's steps: fits, KD, QAT, groups
+    out["prune_launches"] = prune_search.launches  # this rank's refreshes
     return out
 
 
@@ -1952,7 +1960,8 @@ def sharded_phase(args, cfg, card: str) -> dict:
     check(all(n > 0 for n in rank_adam), f"fused Adam launches by rank: {rank_adam}")
     return {"launches_sharded_path": launches + qat_launches,
             "max_abs_err_sharded": max(tower_err, qat_tower_err),
-            "rank_adam_launches": sum(rank_adam)}
+            "rank_adam_launches": sum(rank_adam),
+            "rank_prune_launches": sum(r["prune_launches"] for r in results)}
 
 
 SCALE_ROWS = 1_000_000
@@ -3358,6 +3367,82 @@ def optimizer_phase(args, card: str) -> dict:
     return {"device_ms_by_config": out}
 
 
+def refresh_phase(args, card: str) -> dict:
+    """Phase 25: the prune refresh alone at the Criteo configuration's leaves,
+    with the benchmark's keyword arguments: the kernel's route against the torch
+    path from equal trees, bit for bit, 7 launches a refresh; then the device time
+    of a CUDA graph of 20 calls (median of 10) beside the bound, the torch path's
+    (the yardstick), a ``PruneRefresh`` replay between CUDA events, and the
+    refresh's top device operations. Returns the kernels line's entries."""
+    from port_bench import roofline
+    from port_bench.program import model_config
+    from xsdeepfwfm_deprecated_torch import _tree
+    from xsdeepfwfm_deprecated_torch.compression import pruning
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import LAUNCHES, prune_search
+    from xsdeepfwfm_deprecated_torch.train.trainer import PruneRefresh
+
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    conf = json.loads((BENCH_CONFIGS / "deepfwfm_criteo.json").read_text())
+    params = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), model_config(conf),
+                                  device=dev)
+    dense = params["emb2"]["dense"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 25)
+    dense.masked_fill_(torch.rand(dense.shape, generator=gen, device=dev) < 0.4, 0)
+    dense[200_000:500_000] *= 1e-29
+    kw = {k: conf[k] for k in ("emb_r", "emb_corr", "prune_fm", "prune_deep", "prune_r")}
+    target = torch.full((), 0.5, device=dev)
+    launches = LAUNCHES
+
+    @contextlib.contextmanager
+    def torch_path():
+        takes = pruning._kernel_takes
+        pruning._kernel_takes = lambda leaf: False
+        try:
+            yield
+        finally:
+            pruning._kernel_takes = takes
+
+    clone = lambda: _tree.tree_map(torch.clone, params)   # noqa: E731
+    got, want = clone(), clone()
+    before = prune_search.launches
+    pruning.prune_params_(got, target, **kw)
+    check(prune_search.launches == before + launches,
+          f"a refresh made {prune_search.launches - before} prune_search launches")
+    with torch_path():
+        pruning.prune_params_(want, target, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(_tree.leaves(got), _tree.leaves(want)))
+    check(same, "the kernel's refresh differs from the torch path's")
+    del got, want
+
+    kernel_ms = graph_ms(lambda: pruning.prune_params_(params, target, **kw))
+    with torch_path():
+        plain_ms = graph_ms(lambda: pruning.prune_params_(params, target, **kw))
+    refresh = PruneRefresh(kw)
+    event_ms = cuda_ms(lambda: refresh(params, 0.5), 20, warmup=2)
+    _, busy_ms, top = profile_top(lambda: refresh(params, 0.5), calls=10)
+    bound_ms = roofline.refresh_least_seconds(conf) * 1e3
+    phase(25, f"prune refresh at deepfwfm_criteo's {roofline.pruned_values(conf):,} pruned "
+              f"values: the kernel's route equal to the torch path bit for bit: {same}, "
+              f"{launches} launches a refresh {where}")
+    print(f"  prune_search route {kernel_ms:.4f} ms | bound {bound_ms:.4f} ms (2 x 4 B a value "
+          f"at 3.35 TB/s; {100 * bound_ms / kernel_ms:.2f}% of it) | torch path {plain_ms:.4f} "
+          f"ms (yardstick) | PruneRefresh replay {event_ms:.4f} ms between events, "
+          f"{busy_ms:.4f} ms busy {where}")
+    for key, ms, count in top:
+        print(f"    {ms:8.4f} ms  x{count:g}  {key}")
+    check(not any("ReduceOp_long" in key or "count_nonzero" in key for key, _, _ in top),
+          "a count pass in the refresh's top operations")
+    del params, refresh
+    torch.cuda.empty_cache()
+    return {"kernel_ms": round(kernel_ms, 4), "bound_ms": round(bound_ms, 4),
+            "plain_ms": round(plain_ms, 4), "event_ms": round(event_ms, 4),
+            "launches_per_refresh": launches}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -3585,7 +3670,7 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24), without the result "
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25), without the result "
                     "lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
@@ -3647,6 +3732,8 @@ def main(argv=None) -> int:
                 run(args, cfg, card)
         if 24 in groups:
             optimizer_phase(args, card)
+        if 25 in groups:
+            refresh_phase(args, card)
         print(card)
         return 0
     if args.parity:
@@ -3654,52 +3741,62 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    # each phase group's fused Adam launches, a rank's included: the kernels line's
+    # each phase group's fused Adam and prune_search launches, a rank's included: the
+    # kernels line's. A path that trains must launch fused Adam, one that refreshes the
+    # pruning prune_search, and every other path neither.
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
-    adam = {}
+    from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
+    adam, prune = {}, {}
 
-    def counting_adam(path: str, trains: bool, run, *run_args) -> dict:
-        fused_adam.launches = 0
+    def counting_adam(path: str, trains: bool, prunes: bool, run, *run_args) -> dict:
+        fused_adam.launches = prune_search.launches = 0
         out = run(*run_args) or {}
         n = fused_adam.launches + out.pop("rank_adam_launches", 0)
         check(n > 0 if trains else n == 0, f"the {path} path made {n} fused Adam launches")
         adam[f"launches_{path}_path"] = n
+        n = prune_search.launches + out.pop("rank_prune_launches", 0)
+        check(n > 0 if prunes else n == 0, f"the {path} path made {n} prune_search launches")
+        prune[f"launches_{path}_path"] = n
         return out
 
     # ---- 4-7. serving
-    served = counting_adam("serving", False, serving_phases, args, cfg, card, params_cpu, reqs)
+    served = counting_adam("serving", False, False, serving_phases, args, cfg, card, params_cpu, reqs)
 
     # ---- 8-11. the training path
-    trained = counting_adam("training", True, training_phases, args, cfg, card)
+    trained = counting_adam("training", True, True, training_phases, args, cfg, card)
 
     # ---- 12-16. the deploy path through the CLIs
-    deployed = counting_adam("cli", True, deploy_phases, args, cfg, card)
+    deployed = counting_adam("cli", True, True, deploy_phases, args, cfg, card)
 
     # ---- 17. sharded training
-    sharded = counting_adam("sharded", True, sharded_phase, args, cfg, card)
+    sharded = counting_adam("sharded", True, True, sharded_phase, args, cfg, card)
 
     # ---- 18. quality at scale
-    scaled = counting_adam("scale", True, scale_phase, card)
+    scaled = counting_adam("scale", True, True, scale_phase, card)
 
     # ---- 19. the bin input pipeline
-    piped = counting_adam("pipeline", True, pipeline_phase, card)
+    piped = counting_adam("pipeline", True, False, pipeline_phase, card)
 
     # ---- 20. the compiled dispatch, graphed against eager
-    dispatched = counting_adam("dispatch", True, dispatch_phase, args, cfg, card)
+    dispatched = counting_adam("dispatch", True, True, dispatch_phase, args, cfg, card)
 
     # ---- 21. the compiled timers, beside the eager readings
-    timed_path = counting_adam("timers", False, timers_phase, args, cfg, card)
+    timed_path = counting_adam("timers", False, True, timers_phase, args, cfg, card)
 
     # ---- 22. the per-batch compiled dispatch: fit at steps_per_call=1, graphed against eager
-    per_batch = counting_adam("per_batch", True, per_batch_phase, args, cfg, card)
+    per_batch = counting_adam("per_batch", True, True, per_batch_phase, args, cfg, card)
 
     # ---- 23. the last compiled forms: the hash-MLP baseline's fit, graphed against eager
-    counting_adam("hash_mlp", True, last_forms_phase, args, cfg, card)
-    print("  fused Adam launches by path (graph replays counted): "
-          + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in adam.items()))
+    counting_adam("hash_mlp", True, False, last_forms_phase, args, cfg, card)
+    for name, counts in (("fused Adam", adam), ("prune_search", prune)):
+        print(f"  {name} launches by path (graph replays counted): "
+              + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in counts.items()))
 
     # ---- 24. the fused Adam kernel alone, beside its bound
     optimized = optimizer_phase(args, card)
+
+    # ---- 25. the prune refresh alone, beside its bound
+    refreshed = refresh_phase(args, card)
 
     # ---- result lines
     kernels = [{
@@ -3710,7 +3807,10 @@ def main(argv=None) -> int:
         **timed_path, **per_batch},
         {"name": "fused_adam", "route": "cuda",
          "source": "xsdeepfwfm_deprecated_torch/csrc/fused_adam.cu", "replaces": None,
-         **adam, **optimized}]
+         **adam, **optimized},
+        {"name": "prune_search", "route": "cuda",
+         "source": "xsdeepfwfm_deprecated_torch/csrc/prune_search.cu", "replaces": None,
+         **prune, **refreshed}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

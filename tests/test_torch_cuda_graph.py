@@ -78,7 +78,7 @@ def test_graph_replay_counts_the_captured_launches(monkeypatch):
     g = cuda_graph.Graphed(two_towers, (torch.ones(3),), device=torch.device("cpu"),
                            name="two towers", generators=(gen,))
     graphs[0].fn = lambda: out.add_(2 * g.inputs[0])   # the recorded kernels, not the wrapper
-    assert int8_mlp.launches == 7 and g.captured == (2, 0)   # (int8_mlp, fused_adam)
+    assert int8_mlp.launches == 7 and g.captured == (2, 0, 0)   # int8_mlp, fused_adam, prune_search
     assert graphs[0].generators == [gen]
     res = g(torch.full((3,), 2.0))
     assert int8_mlp.launches == 9 and res is out
@@ -137,8 +137,8 @@ def test_graph_replay_appends_the_captured_traffic(monkeypatch):
                            barrier=lambda: calls.append("barrier"))
     assert calls == ["barrier", "capture"] and modes == ["thread_local"]
     assert traffic == [("all-reduce", "world", 4, 8)]
-    assert g.captured == (0, 0, [("all-to-all", "world", 4, 64),    # the two kernels, the log
-                                 ("all-reduce", "data", 2, 16)])
+    assert g.captured == (0, 0, 0, [("all-to-all", "world", 4, 64),    # the three kernels, the log
+                                    ("all-reduce", "data", 2, 16)])
     g(torch.ones(2))
     g.replay()
     assert traffic == [("all-reduce", "world", 4, 8)] + 2 * [("all-to-all", "world", 4, 64),

@@ -15,10 +15,14 @@ Port of ``xsdeepfwfm_deprecated_tpu/compression/pruning.py``:
   can regrow a pruned weight, so thresholds are recomputed at every refresh.
 
 Threshold search: the exact ``torch.quantile(|w|, s)`` up to ``BISECT_SIZE``
-elements; above it a bisection of the value range in 40 passes over the
-array. The whole search stays on the tensor's device: the halvings choose
-with ``torch.where`` on 0-d tensors, so a refresh reads no value back to
-the host.
+elements; above it a bisection of the value range in 40 halvings. On the CPU
+(and for the sharded table) each halving is a pass over the array
+(:func:`_bisect`); on the card one CUDA kernel searches every such group of
+the tree at once, 8 halvings a pass, and zeroes in place
+(``ops/cuda/prune_search``), to the same threshold bit for bit. Either way
+the search stays on the tensor's device, so a refresh reads no value back
+to the host. A refresh writes the zeros into the tree's own tensors
+(:func:`prune_params_`); :func:`prune_params` does so on a copy.
 
 On a mesh (``prune_params(..., mesh=...)``) the dense table is this rank's
 row block, and its threshold is still global over the real rows: the
@@ -30,7 +34,7 @@ unsharded. Every other leaf is identical on every rank and pruned locally.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -39,12 +43,15 @@ from .. import _tree
 from ..config import ModelConfig
 from ..device import exact_div
 from ..models import deepfwfm
+from ..ops.cuda.prune_search import prune_search
 from ..parallel.mesh import MODEL_AXIS, Axes, Mesh
 
 BISECT_SIZE = 1 << 14
 BISECT_ITERS = 40
 
 Target = Union[float, torch.Tensor]
+# one magnitude threshold: (leaf, leading values counted) pairs, every leaf zeroed whole
+Search = Tuple[List[Tuple[torch.Tensor, int]], torch.Tensor]
 
 
 def _bisect_threshold(absw: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -134,16 +141,44 @@ def apply_threshold(w: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
     return torch.where(w.abs().to(threshold.dtype) < threshold, torch.zeros_like(w), w)
 
 
+def _apply_threshold_(w: torch.Tensor, threshold: torch.Tensor) -> None:
+    """:func:`apply_threshold` in place."""
+    w.masked_fill_(w.abs().to(threshold.dtype) < threshold, 0)
+
+
+def _kernel_takes(leaf: torch.Tensor) -> bool:
+    """Whether a search over ``leaf`` runs the CUDA kernel: on the card."""
+    return leaf.device.type == "cuda"
+
+
+def _search_(searches: List[Search]) -> None:
+    """Each search's threshold, with its leaves zeroed below it in place: one
+    kernel for every search on the card above ``BISECT_SIZE`` values, and
+    :func:`magnitude_threshold` for the rest."""
+    card, rest = [], []
+    for search in searches:
+        segments = search[0]
+        big = sum(n for _, n in segments) > BISECT_SIZE
+        (card if big and _kernel_takes(segments[0][0]) else rest).append(search)
+    if card:
+        prune_search([segments for segments, _ in card], [target for _, target in card])
+    for segments, target in rest:
+        thr = magnitude_threshold(
+            torch.cat([leaf.reshape(-1)[:n].to(torch.float32) for leaf, n in segments]), target)
+        for leaf, _ in segments:
+            _apply_threshold_(leaf, thr)
+
+
 @torch.no_grad()
-def prune_params(params: Dict, adaptive_sparse: Target, *,
-                 emb_r: float = 1.0, emb_corr: float = 1.0,
-                 prune_fm: bool = True, prune_deep: bool = True,
-                 prune_r: bool = False, dense_rows: int = 0,
-                 structured_deep: bool = False, mesh: Optional[Mesh] = None,
-                 table_axes: Axes = MODEL_AXIS) -> Dict:
-    """One prune refresh over the parameter tree. Returns the pruned tree,
-    with every key in the input's order (the optimizer state is matched to the
-    parameters by leaf order); the input's tensors are left as they were.
+def prune_params_(params: Dict, adaptive_sparse: Target, *,
+                  emb_r: float = 1.0, emb_corr: float = 1.0,
+                  prune_fm: bool = True, prune_deep: bool = True,
+                  prune_r: bool = False, dense_rows: int = 0,
+                  structured_deep: bool = False, mesh: Optional[Mesh] = None,
+                  table_axes: Axes = MODEL_AXIS) -> None:
+    """One prune refresh over the parameter tree, written into ``params``' own
+    tensors, which the optimizer state, a captured CUDA graph and the caller
+    keep referring to (``DeepFMEstimator.fit`` refreshes this way).
 
     ``dense_rows``: true row count of the packed ``dense`` table, for a table
     that was padded with zero rows: the threshold is then taken over the real
@@ -156,65 +191,53 @@ def prune_params(params: Dict, adaptive_sparse: Target, *,
     ``structured_deep`` prunes whole hidden units by the L2 norm of their
     weight column, on the same schedule, and zeroes the unit's bias with it,
     so that compaction can shrink the tower into a smaller dense one."""
-    params = dict(params)
-    ref = _tree.leaves(params)[0]
-    adaptive = _as_scalar(adaptive_sparse, ref)
+    adaptive = _as_scalar(adaptive_sparse, _tree.leaves(params)[0])
+    searches: List[Search] = []
 
     if prune_fm and "emb2" in params:
         tables = params["emb2"]
         if mesh is not None:
             thr = _sharded_table_threshold(tables, adaptive * emb_r, dense_rows, mesh, table_axes)
+            for t in tables.values():
+                _apply_threshold_(t, thr)
         else:
-            flat = torch.cat([(t[:dense_rows] if k == "dense" and dense_rows
-                               and t.shape[0] > dense_rows else t).reshape(-1).to(torch.float32)
-                              for k, t in tables.items()])
-            thr = magnitude_threshold(flat, adaptive * emb_r)
-            del flat
-        params["emb2"] = {k: apply_threshold(t, thr) for k, t in tables.items()}
+            searches.append(([(t, (t[:dense_rows] if k == "dense" and dense_rows
+                                   and t.shape[0] > dense_rows else t).numel())
+                              for k, t in tables.items()], adaptive * emb_r))
 
     if prune_deep:
         if "deep" in params:
-            new_deep = {}
             # the DeepFwFM family keeps named nets; NFM's "deep" is one net, without a head
-            one_net = "layers" in params["deep"]
-            nets = {"": params["deep"]} if one_net else params["deep"]
-            for net_name, net in nets.items():
-                layers = []
+            nets = [params["deep"]] if "layers" in params["deep"] else params["deep"].values()
+            for net in nets:
                 for layer in net["layers"]:
                     w, b = layer["w"], layer["b"]
                     if structured_deep:
                         norms = (w * w).sum(dim=0).sqrt()       # per unit
                         dead = norms < magnitude_threshold(norms, adaptive)
-                        layers.append({**layer,
-                                       "w": torch.where(dead[None, :], torch.zeros_like(w), w),
-                                       "b": torch.where(dead, torch.zeros_like(b), b)})
+                        w.masked_fill_(dead[None, :], 0)
+                        b.masked_fill_(dead, 0)
                     else:
-                        layers.append({**layer,
-                                       "w": apply_threshold(w, magnitude_threshold(w, adaptive))})
-                new_deep[net_name] = {**net, "layers": layers}
-            params["deep"] = new_deep[""] if one_net else new_deep
+                        searches.append(([(w, w.numel())], adaptive))
         if "fwlw_w" in params:
-            w = params["fwlw_w"]
-            params["fwlw_w"] = apply_threshold(w, magnitude_threshold(w, adaptive))
+            searches.append(([(params["fwlw_w"], params["fwlw_w"].numel())], adaptive))
 
     if prune_r and "field_cov" in params:
         r = params["field_cov"]
         sym = 0.5 * (r + r.T)
-        thr = magnitude_threshold(sym, adaptive * emb_corr)
-        params["field_cov"] = torch.where(sym.abs() < thr, torch.zeros_like(r), r)
+        r.masked_fill_(sym.abs() < magnitude_threshold(sym, adaptive * emb_corr), 0)
 
-    return params
+    _search_(searches)
 
 
 @torch.no_grad()
-def prune_params_(params: Dict, adaptive_sparse: Target, **kw) -> None:
-    """:func:`prune_params` written back into ``params``' own tensors, which
-    the optimizer state, a captured CUDA graph and the caller keep referring
-    to (``DeepFMEstimator.fit`` refreshes this way)."""
-    for old, new in zip(_tree.leaves(params), _tree.leaves(prune_params(params, adaptive_sparse,
-                                                                         **kw))):
-        if new is not old:
-            old.copy_(new)
+def prune_params(params: Dict, adaptive_sparse: Target, **kw) -> Dict:
+    """:func:`prune_params_` on a copy of the tree: returns the pruned tree,
+    with every key in the input's order (the optimizer state is matched to the
+    parameters by leaf order); the input's tensors are left as they were."""
+    out = _tree.tree_map(torch.clone, params)
+    prune_params_(out, adaptive_sparse, **kw)
+    return out
 
 
 def make_masks(params: Dict, cfg: ModelConfig) -> Dict:

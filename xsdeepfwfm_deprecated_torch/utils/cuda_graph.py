@@ -56,10 +56,12 @@ import torch
 from .. import _tree
 from ..ops.cuda.fused_adam import fused_adam
 from ..ops.cuda.int8_mlp import int8_mlp
+from ..ops.cuda.prune_search import prune_search
 from ..ops.mlp import BatchShard
 from . import profiling
 
-KERNELS = (int8_mlp, fused_adam)    # the wrappers of csrc/, each counting its launches
+# the wrappers of csrc/, each counting its launches
+KERNELS = (int8_mlp, fused_adam, prune_search)
 
 
 class Counter:
