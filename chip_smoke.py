@@ -2248,12 +2248,12 @@ def eager_forms():
     """Inside the block the port captures nothing, on the card too: each
     graphed form runs as the eager form it replaces."""
     from xsdeepfwfm_deprecated_torch.utils import cuda_graph
-    on_card = cuda_graph.on_card
-    cuda_graph.on_card = lambda device: False
+    on_card = cuda_graph._on_card
+    cuda_graph._on_card = lambda device: False
     try:
         yield
     finally:
-        cuda_graph.on_card = on_card
+        cuda_graph._on_card = on_card
 
 
 def in_turns(fn_a, fn_b, iters: int):
@@ -2401,13 +2401,14 @@ def dispatch_phase(args, cfg, card: str) -> dict:
                 for _ in range(DISPATCH_FIT_K) for x in xs]
     gen_g = torch.Generator(device=dev).manual_seed(args.seed + 5)
     gen_e = torch.Generator(device=dev).manual_seed(args.seed + 5)
-    graph = cuda_graph.Graphed(lambda *xs: draws(gen_g, xs), ones, device=dev,
-                               name="dropout draws", generators=(gen_g,),
-                               warmup=lambda *xs: draws(cuda_graph.clone_generator(gen_g), xs))
-    masks_g = [m.clone() for m in graph.replay()]
-    masks_g += [m.clone() for m in graph.replay()]   # the second replay draws on from the first
+    graphed = cuda_graph.Compiled(lambda gen, **xs: draws(gen, list(xs.values())),
+                                  "dropout draws", device=dev, writes_state=True)
+    inputs = {f"x{i}": x for i, x in enumerate(ones)}
+    masks_g = graphed((gen_g,), inputs)
+    masks_g += graphed((gen_g,), inputs)     # the second replay draws on from the first
     masks_e = draws(gen_e, ones) + draws(gen_e, ones)
-    del graph
+    check(len(graphed) == 1, f"{len(graphed)} graphs of the dropout draws")
+    del graphed
     same_masks = all(torch.equal(a, m) for a, m in zip(masks_g, masks_e))
     check(same_masks, "graphed dropout draws differ from the eager steps' draws")
 
@@ -2435,9 +2436,9 @@ def dispatch_phase(args, cfg, card: str) -> dict:
                                         logger=quiet)
         making, eager = [False], [0]
 
-        def counted_steps(self, *a):        # outside a graph's warm-up and capture: eager
+        def counted_steps(self, *a, **kw):  # outside a graph's warm-up and capture: eager
             eager[0] += not making[0]
-            return steps_run(self, *a)
+            return steps_run(self, *a, **kw)
 
         def marked_init(self, *a, **kw):
             making[0] = True
@@ -2699,8 +2700,8 @@ class TimerSpy:
             if graph.name.startswith(("marginal_timeit", "scan_timeit")) and \
                     not getattr(graph, "_noted", False):
                 graph._noted = True
-                self.graphs.append((graph.name, graph.outputs[0].shape[0], graph.captured[0],
-                                    len(graph.outputs)))
+                self.graphs.append((graph.name, graph.outputs[0].shape[0],
+                                    graph.captured["int8_mlp"], len(graph.outputs)))
             return replay(graph)
         profiling.timed, cuda_graph.Graphed.replay = spied_timed, spied_replay
         try:
@@ -3276,14 +3277,11 @@ def last_forms_phase(args, cfg, card: str) -> None:
     state = opt.init(params)
     x = torch.from_numpy(ref._featurize(xi[:tc.batch_size], xv[:tc.batch_size])).to(dev)
     yb = torch.from_numpy(y[:tc.batch_size]).to(dev)
-    clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
-    graph = cuda_graph.Graphed(lambda a, b: hm.train_step(params, state, opt, a, b), (x, yb),
-                               device=dev, name=hm_step_name,
-                               warmup=lambda a, b: hm.train_step(clone(params), clone(state),
-                                                                 opt, a, b))
+    step = cuda_graph.Compiled(lambda p, s, a, b: hm.train_step(p, s, opt, a, b), hm_step_name,
+                               writes_state=True)
 
-    def graphed_step():
-        graph(x, yb)
+    def graphed_step():     # the first call, in in_turns' warm-up, captures
+        step((params, state), {"a": x, "b": yb})
         torch.cuda.synchronize()
 
     def eager_step():
@@ -3291,7 +3289,7 @@ def last_forms_phase(args, cfg, card: str) -> None:
         torch.cuda.synchronize()
     g_ms, e_ms = in_turns(graphed_step, eager_step, 50)
     g_busy, e_busy = busy(graphed_step, 20), busy(eager_step, 20)
-    del graph, params, state
+    del step, params, state
     phase(23, f"the last compiled forms: HashMLPBaseline at hash_dim {ref.hash_dim}, hidden "
               f"{tuple(ref.hidden)}, B={tc.batch_size}, {time.perf_counter() - t_phase:.1f} s "
               f"{where}")

@@ -1,7 +1,8 @@
-"""The CUDA-graph capture helper (``utils/cuda_graph.py``): on the CPU, with
+"""The CUDA-graph dispatch (``utils/cuda_graph.py``): on the CPU, with
 stand-ins for CUDA's graph, capture and streams, the launch counts and a
-mesh's ``traffic`` through a replay, a sharded step's generator, and a failed
-capture; on the card (marked ``cuda``), a graphed ``Predictor``, a graphed
+mesh's ``traffic`` through a replay, a sharded step's generator, a failed
+capture, what ``Compiled`` decides (eager or replay, when to capture) and the
+kernels' launch counters; on the card (marked ``cuda``), a graphed ``Predictor``, a graphed
 multi-step, a padded pruning group, the hash-MLP baseline's fit and
 ``calibrate`` against their eager forms. No JAX here, so the card's
 machine runs the card's test: ``python -m pytest --noconftest
@@ -9,6 +10,9 @@ tests/test_torch_cuda_graph.py -m cuda``.
 """
 
 import contextlib
+import gc
+import importlib
+import weakref
 
 import numpy as np
 import pytest
@@ -17,9 +21,11 @@ import torch
 from xsdeepfwfm_deprecated_torch import _tree
 from xsdeepfwfm_deprecated_torch.config import ModelConfig, TrainConfig
 from xsdeepfwfm_deprecated_torch.models import deepfwfm
+from xsdeepfwfm_deprecated_torch.ops.cuda import _build
 from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
 from xsdeepfwfm_deprecated_torch.train import trainer
 from xsdeepfwfm_deprecated_torch.utils import cuda_graph
+from xsdeepfwfm_deprecated_torch.utils import profiling
 
 SIZES = (1, 1, 1, 5, 9, 30)
 
@@ -78,9 +84,11 @@ def test_graph_replay_counts_the_captured_launches(monkeypatch):
     g = cuda_graph.Graphed(two_towers, (torch.ones(3),), device=torch.device("cpu"),
                            name="two towers", generators=(gen,))
     graphs[0].fn = lambda: out.add_(2 * g.inputs[0])   # the recorded kernels, not the wrapper
-    assert int8_mlp.launches == 7 and g.captured == (2, 0, 0)   # int8_mlp, fused_adam, prune_search
+    assert int8_mlp.launches == 7 and g.captured["int8_mlp"] == 2
+    assert all(n == 0 for name, n in g.captured.items() if name != "int8_mlp")
     assert graphs[0].generators == [gen]
-    res = g(torch.full((3,), 2.0))
+    g.load(torch.full((3,), 2.0))
+    res = g.replay()
     assert int8_mlp.launches == 9 and res is out
     g.replay()
     assert int8_mlp.launches == 11
@@ -137,9 +145,10 @@ def test_graph_replay_appends_the_captured_traffic(monkeypatch):
                            barrier=lambda: calls.append("barrier"))
     assert calls == ["barrier", "capture"] and modes == ["thread_local"]
     assert traffic == [("all-reduce", "world", 4, 8)]
-    assert g.captured == (0, 0, 0, [("all-to-all", "world", 4, 64),    # the three kernels, the log
-                                    ("all-reduce", "data", 2, 16)])
-    g(torch.ones(2))
+    assert g.captured["traffic"] == [("all-to-all", "world", 4, 64), ("all-reduce", "data", 2, 16)]
+    assert all(n == 0 for name, n in g.captured.items() if name in cuda_graph.KERNELS)
+    g.load(torch.ones(2))
+    g.replay()
     g.replay()
     assert traffic == [("all-reduce", "world", 4, 8)] + 2 * [("all-to-all", "world", 4, 64),
                                                              ("all-reduce", "data", 2, 16)]
@@ -159,36 +168,186 @@ def test_graph_replay_appends_the_captured_traffic(monkeypatch):
 
 
 def test_batch_shard_generator_is_registered_and_not_advanced(monkeypatch):
-    """A sharded step draws through ``ops.mlp.BatchShard``: the graph
-    registers the generator inside it, and a warm-up on
-    ``clone_generator`` of it (a ``BatchShard`` around a clone) draws the
-    same numbers and leaves the step's generator where it was."""
+    """A sharded step draws through ``ops.mlp.BatchShard``: a ``Compiled``
+    step with the shard in its state registers the generator inside it, and
+    warms up on ``BatchShard.clone`` (a shard around a clone of the
+    generator), which draws the numbers the capture draws and leaves the
+    step's generator where it was."""
     from xsdeepfwfm_deprecated_torch.ops.mlp import BatchShard, dropout
     graphs = []
 
     @contextlib.contextmanager
     def capture(graph, stream=None, capture_error_mode="global"):
         graphs.append(graph)
+        graph.fn = lambda: None
         yield
 
     _streams_on_the_cpu(monkeypatch, capture)
+    monkeypatch.setattr(cuda_graph, "_on_card", lambda device: True)
     gen = torch.Generator().manual_seed(3)
     shard = BatchShard(gen, 8, 4)
     state = gen.get_state()
-    warm = []
-    x = torch.ones(4, 3)
+    seen = []
 
-    def warmup(x):
-        clone = cuda_graph.clone_generator(shard)
-        assert isinstance(clone, BatchShard) and clone.generator is not gen
-        assert (clone.batch, clone.start) == (8, 4)
-        warm.append(dropout(clone, x, 0.5, True))
+    def step(w, shard, x):
+        seen.append((shard, shard.generator.get_state(), dropout(shard, x, 0.5, True)))
+        return w + 1
 
-    cuda_graph.Graphed(lambda x: x, (x,), device=torch.device("cpu"), name="a sharded step",
-                       warmup=warmup, generators=(shard,))
+    cuda_graph.Compiled(step, "a sharded step", writes_state=True)(
+        (torch.zeros(2), shard), {"x": torch.ones(4, 3)})
+    (warm, warm_state, warm_draws), (real, real_state, real_draws) = seen
+    assert isinstance(warm, BatchShard) and warm.generator is not gen and real is shard
+    assert (warm.batch, warm.start) == (8, 4)
+    assert torch.equal(warm_state, state) and torch.equal(real_state, state)
     assert graphs[0].generators == [gen]
-    assert torch.equal(gen.get_state(), state)
-    torch.testing.assert_close(warm[0], dropout(shard, x, 0.5, True), rtol=0, atol=0)
+    torch.testing.assert_close(warm_draws, real_draws, rtol=0, atol=0)
+
+
+# (name, the card stood in for, collectives capturable, the calls, (captures, graphs held,
+# eager runs)): "plain" a call on the state, "replaced" on a new parameter tree, "traced"
+# with tracing on, "anomaly" in autograd's anomaly mode
+DECISIONS = [
+    ("a CPU device runs eagerly", False, True, ["plain", "plain"], (0, 0, 2)),
+    ("a gloo mesh runs eagerly", True, False, ["plain", "plain"], (0, 0, 2)),
+    ("the card captures once, then replays", True, True, ["plain", "plain", "plain"], (1, 1, 0)),
+    ("a replaced state captures again", True, True, ["plain", "replaced", "plain"], (3, 1, 0)),
+    ("tracing captures a traced variant", True, True, ["plain", "traced", "plain", "traced"],
+     (2, 2, 0)),
+    ("a stateful call raises in anomaly mode", True, True, ["plain", "anomaly"], (1, 1, 0)),
+]
+
+
+@pytest.mark.parametrize("case, card, capturable, calls, want", DECISIONS,
+                         ids=[d[0] for d in DECISIONS])
+def test_compiled_decides_eager_or_replay_and_when_to_capture(case, card, capturable, calls,
+                                                              want, monkeypatch):
+    """What ``Compiled`` decides on each call of a step that writes its state,
+    with CUDA's graph, capture, streams and events stood in for on the CPU:
+    eager or replay, when it captures, and that each capture's warm-up ran on
+    clones of the state and of the generator and the capture on the state."""
+    from test_torch_tracing import _cuda_on_the_cpu
+    _cuda_on_the_cpu(monkeypatch)
+    if card:
+        monkeypatch.setattr(cuda_graph, "_on_card", lambda device: True)
+    seen = []
+
+    def step(w, gen, x):
+        seen.append((w, gen))
+        return w + x
+
+    w, other, gen = torch.zeros(2), torch.zeros(2), torch.Generator().manual_seed(0)
+    compiled = cuda_graph.Compiled(step, "a step", writes_state=True, capturable=capturable)
+    before = len(cuda_graph.CAPTURES)
+    for call in calls:
+        args = ((other if call == "replaced" else w, gen), {"x": torch.ones(2)})
+        if call == "anomaly":
+            with torch.autograd.set_detect_anomaly(True), \
+                    pytest.raises(RuntimeError, match="anomaly detection"):
+                compiled(*args)
+            continue
+        with profiling.tracing() if call == "traced" else contextlib.nullcontext():
+            out = compiled(*args)
+        assert torch.equal(out, torch.ones(2))
+    captures, held, eager = want
+    assert len(cuda_graph.CAPTURES) - before == captures and len(compiled) == held
+    assert len(seen) == 2 * captures + eager
+    for (warm_w, warm_gen), (cap_w, cap_gen) in zip(seen[0:2 * captures:2],
+                                                     seen[1:2 * captures:2]):
+        assert warm_w is not cap_w and warm_gen is not gen and cap_gen is gen
+        assert cap_w is w or cap_w is other
+    assert all(s == (w, gen) for s in seen[2 * captures:])
+
+
+def test_the_warm_up_and_the_capture_see_tensors_of_their_own(monkeypatch):
+    """The warm-up and the capture each call the function on views of their own over the static
+    buffers: a function that caches by a tensor's identity, as the all-to-all lookup's one index
+    exchange a forward does (``parallel/embedding_sharding._make_lookup``), recomputes inside
+    the capture, so the graph holds the computation and not the warm-up's result (the card stood
+    in for on the CPU)."""
+    from test_torch_tracing import _cuda_on_the_cpu
+    _cuda_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(cuda_graph, "_on_card", lambda device: True)
+    cache, seen = {"x": None}, []
+
+    def step(w, x):
+        seen.append(x)
+        if cache["x"] is not x:
+            cache["x"], cache["y"] = x, x * 2
+        return w + cache["y"]
+
+    compiled = cuda_graph.Compiled(step, "a cached step", writes_state=True)
+    compiled((torch.zeros(2),), {"x": torch.ones(2)})
+    warm, captured = seen
+    assert warm is not captured and cache["x"] is captured
+    graph = next(iter(compiled._held.values()))[1]
+    assert all(v.data_ptr() == b.data_ptr() for v, b in zip((warm, captured), graph.inputs * 2))
+
+
+def _callers():
+    """Each compiled call of the port, made and called once on small seeded
+    inputs: (its maker, a call of it)."""
+    cfg = ModelConfig(field_size=len(SIZES), feature_sizes=SIZES, numerical=3, embedding_size=4,
+                      h_depth=2, deep_nodes=16, use_fwfm=True, use_deep=True, use_lw=True,
+                      use_fwlw=True)
+    rng = np.random.default_rng(4)
+    b, k = 8, 2
+    xi = torch.from_numpy(rng.integers(0, SIZES[3:], size=(k, b, 3)).astype(np.int32))
+    xv = torch.from_numpy(rng.normal(size=(k, b, 3)).astype(np.float32))
+    y, mask = torch.ones(k, b), torch.ones(k, b)
+    tc = TrainConfig(batch_size=b, learning_rate=1e-2)
+    opt = trainer.make_optimizer(tc)
+    params = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    state = opt.init(params)
+    gen = torch.Generator().manual_seed(1)
+    prune_kw = dict(emb_r=0.5, emb_corr=1.0, prune_fm=True, prune_deep=True, prune_r=True)
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+    return {
+        "make_train_step": (lambda: trainer.make_train_step(cfg, tc, opt), lambda f: f(
+            params, state, {"xi": xi[0], "xv": xv[0], "y": y[0], "mask": mask[0]}, gen)),
+        "make_multi_step": (lambda: trainer.make_multi_step(cfg, tc, opt),
+                            lambda f: f(params, state, xi, xv, y, mask, gen)),
+        "PruneRefresh": (lambda: trainer.PruneRefresh(prune_kw), lambda f: f(params, 0.3)),
+        "make_eval_fn": (lambda: trainer.make_eval_fn(cfg), lambda f: f(params, xi[0], xv[0])),
+        "make_scan_eval_fn": (lambda: trainer.make_scan_eval_fn(cfg),
+                              lambda f: f(params, xi, xv)),
+        "Predictor": (lambda: Predictor(params, cfg, device="cpu"),
+                      lambda f: f.logits(xi[0].numpy(), xv[0].numpy())),
+    }
+
+
+@pytest.mark.parametrize("caller", ["make_train_step", "make_multi_step", "PruneRefresh",
+                                    "make_eval_fn", "make_scan_eval_fn", "Predictor"])
+def test_a_callers_graphs_are_freed_with_it(caller, monkeypatch):
+    """A compiled call's graphs are freed when the call is, with Python's
+    cyclic collector off: a reference cycle would leave them to the collector,
+    which can free a graph in the middle of another capture, and CUDA ends a
+    capture in which a graph is freed (the card stood in for on the CPU)."""
+    from test_torch_tracing import _cuda_on_the_cpu
+    _cuda_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(cuda_graph, "_on_card", lambda device: True)
+    make, call = _callers()[caller]
+    gc.collect()
+    gc.disable()
+    try:
+        made = make()
+        call(made)
+        graph = weakref.ref(next(iter(made._graphs._held.values()))[1])
+        assert len(made._graphs) == 1 and graph() is not None
+        del made
+        assert graph() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("name", _build.sources())
+def test_every_kernel_source_registers_its_launch_counter(name):
+    """Each ``csrc/<name>.cu``'s wrapper, ``ops/cuda/<name>.py``, registers a
+    count of its launches under its name, which graphs keep through captures
+    and ``profiling.counters`` reads."""
+    module = importlib.import_module(f"xsdeepfwfm_deprecated_torch.ops.cuda.{name}")
+    kernel = cuda_graph.KERNELS[name]
+    assert kernel is getattr(module, name) and isinstance(kernel.launches, int)
+    assert name in profiling.counters()["launches"]
 
 
 @pytest.mark.cuda
@@ -249,7 +408,7 @@ def test_graphed_predictor_and_multi_step_on_the_card():
 @pytest.mark.cuda
 def test_last_compiled_forms_equal_their_eager_forms_on_the_card(monkeypatch):
     """On the card, under deterministic algorithms, each form graphed against
-    the same form eager (``cuda_graph.on_card`` made false for it), to the
+    the same form eager (``cuda_graph._on_card`` made false for it), to the
     bit: a pruning multi-step group of 3 real steps in 4 (the fit's tail
     group; dropout on, one replay of its own graph) and a full group after
     it; ``HashMLPBaseline.fit`` (a replay a step); ``calibrate`` (a replay a
@@ -279,7 +438,7 @@ def test_last_compiled_forms_equal_their_eager_forms_on_the_card(monkeypatch):
     try:
         for graphed in (True, False):
             if not graphed:
-                monkeypatch.setattr(cuda_graph, "on_card", lambda device: False)
+                monkeypatch.setattr(cuda_graph, "_on_card", lambda device: False)
             p = deepfwfm.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
             s = opt.init(p)
             gen = torch.Generator(device="cuda").manual_seed(5)

@@ -7,7 +7,7 @@
 
 Each is held against the JAX package on the same seeded numpy inputs, with
 its tolerance stated. The card's capture paths are driven on the CPU by
-stand-ins (:class:`CardOnTheCPU`): ``utils.cuda_graph.on_card`` says yes for
+stand-ins (:class:`CardOnTheCPU`): ``utils.cuda_graph._on_card`` says yes for
 the CPU, CUDA's streams do nothing, a capture runs the function once (it
 stands for the first replay, which runs on the capture's inputs) and each
 later replay runs it again on the static inputs, writing into the static
@@ -61,20 +61,21 @@ class CardOnTheCPU:
     def __init__(self, monkeypatch, fail=lambda card: False):
         self.captures, self.replays, self.patterns = [], [], []
         self._fail, self._making = fail, None
-        monkeypatch.setattr(cuda_graph, "on_card", lambda device: True)
+        monkeypatch.setattr(cuda_graph, "_on_card", lambda device: True)
         _streams_on_the_cpu(monkeypatch, self._capture)
-        init, capture = cuda_graph.Graphed.__init__, TT.MultiStep._capture
+        init, capture = cuda_graph.Graphed.__init__, cuda_graph.Compiled._capture
         card = self
 
         def recording_init(graphed, fn, inputs, **kw):
             card._making = (graphed, fn)
             init(graphed, fn, inputs, **kw)
 
-        def recording_capture(multi, *args):
-            card.patterns.append(tuple(args[-1]))
-            return capture(multi, *args)
+        def recording_capture(compiled, device, state, leaves, inputs, static):
+            if "live" in static:
+                card.patterns.append(static["live"])
+            return capture(compiled, device, state, leaves, inputs, static)
         monkeypatch.setattr(cuda_graph.Graphed, "__init__", recording_init)
-        monkeypatch.setattr(TT.MultiStep, "_capture", recording_capture)
+        monkeypatch.setattr(cuda_graph.Compiled, "_capture", recording_capture)
 
     @contextlib.contextmanager
     def _capture(self, graph, stream=None, capture_error_mode="global"):
@@ -200,16 +201,17 @@ def test_fit_captures_the_tail_group_once_and_replays_it(monkeypatch):
     steps = []
     run = TT.MultiStep._steps
     monkeypatch.setattr(TT.MultiStep, "_steps",
-                        lambda self, *a: steps.append(tuple(a[-1])) or run(self, *a))
+                        lambda self, *a, live, **kw: steps.append(live) or run(self, *a,
+                                                                               live=live, **kw))
     graphed = TT.DeepFMEstimator(tcfg, tc, logger=QUIET, device="cpu").fit(xi, xv, y)
 
     full, tail = (True,) * 4, (True, True, True, False)
     assert card.patterns == [full, tail]
     multi = [name for name in card.replays if name.startswith(TT.MultiStep.name)]
     assert len(multi) == 2 * 3 and card.captures.count(multi[0]) == 2
-    # what ran the steps: each capture's warm-up (one step on clones) and the capture (the
+    # what ran the steps: each capture's warm-up (the group on clones) and the capture (the
     # first replay), then the later replays; nothing else
-    assert steps == [(True,), full, full, (True,), tail, full, full, tail]
+    assert steps == [full, full, full, tail, tail, full, full, tail]
     for a, b in zip(_tree.leaves((eager.params, eager.opt_state)),
                     _tree.leaves((graphed.params, graphed.opt_state))):
         assert torch.equal(a, b)
@@ -336,7 +338,7 @@ def test_card_epoch_k1_replays_make_train_step(tmp_path, monkeypatch):
     monkeypatch.setattr(hp, "make_multi_step", None)      # K=1 makes no group
     res, graphed = hp.card_epoch(d, sizes, 64, 1, 4, mcfg=cfg, device="cpu")
     assert res["card_steps"] == 4
-    assert card.captures == [TT.TrainStep.name + "(forward)"] and card.patterns == [(True,)]
+    assert card.captures == [TT.TrainStep.name + "(forward)"] and card.patterns == []
     assert card.replays == card.captures * (4 + 2 * hp.BUDGET_REPS)
     for a, b in zip(_tree.leaves(graphed), _tree.leaves(eager)):
         assert torch.equal(a, b)

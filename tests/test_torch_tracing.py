@@ -230,23 +230,19 @@ def _cuda_on_the_cpu(monkeypatch):
 
 def test_tracing_on_captures_a_second_variant_and_off_goes_back_to_the_first(monkeypatch):
     _cuda_on_the_cpu(monkeypatch)
-    graphs, made = cuda_graph.Graphs(), []
+    monkeypatch.setattr(cuda_graph, "_on_card", lambda device: True)
+    compiled = cuda_graph.Compiled(lambda x: x + 1, "g", device=torch.device("cpu"))
     before = P.counters()["captures"].get("g", 0)
 
-    def capture():
-        made.append(cuda_graph.Graphed(lambda x: x + 1, (torch.ones(2),),
-                                       device=torch.device("cpu"), name="g"))
-        return made[-1]
-
-    def get():
-        return graphs.get(("shape",), (), capture)
+    def get():      # the graph whose replay load returns
+        return compiled.load((), {"x": torch.ones(2)}).__self__
 
     first = get()
-    assert get() is first and len(made) == 1
+    assert get() is first and len(compiled) == 1
     with P.tracing():
         traced = get()
-        assert traced is not first and get() is traced and len(made) == 2
-    assert get() is first and len(made) == 2 and len(graphs) == 2
+        assert traced is not first and get() is traced and len(compiled) == 2
+    assert get() is first and len(compiled) == 2
     with P.tracing():
         assert get() is traced
     assert P.counters()["captures"]["g"] == before + 2
@@ -415,8 +411,8 @@ def test_a_graph_captured_with_tracing_off_yields_no_device_spans():
     graph = next(iter(step._graphs._held.values()))[1]
     assert graph.device_spans is None
     with P.tracing():
-        graph(*[t[None] if t.dim() else t for t in (batch["xi"], batch["xv"], batch["y"],
-                                                     batch["mask"])])
+        graph.load(batch["xi"], batch["xv"], batch["y"], batch["mask"])
+        graph.replay()
         torch.cuda.synchronize()
         recorded = P.spans()
     assert recorded == []

@@ -148,22 +148,14 @@ def calibrate(params: Dict, cfg: ModelConfig, xi: np.ndarray, xv: np.ndarray,
                 maxes.append(x.abs().max())
         return torch.stack(maxes)
 
-    graphs = cuda_graph.Graphs()
-
-    def batch_maxes(xi_b: torch.Tensor, xv_b: torch.Tensor) -> torch.Tensor:
-        if not cuda_graph.on_card(device):
-            return layer_maxes(xi_b, xv_b)
-        graph = graphs.get((tuple(xi_b.shape), tuple(xv_b.shape)), (), lambda: cuda_graph.Graphed(
-            layer_maxes, (xi_b, xv_b), device=device, name="calibrate"))
-        return graph(xi_b, xv_b).clone()   # the next replay overwrites the graph's output
-
+    batch_maxes = cuda_graph.Compiled(layer_maxes, "calibrate", device=device)
     maxes = []
     n = xi.shape[0]
     for i in range(n_batches):
         lo = (i * batch_size) % max(n - batch_size, 1)
         xi_b = torch.from_numpy(np.asarray(xi[lo:lo + batch_size], np.int32)).to(device)
         xv_b = torch.from_numpy(np.asarray(xv[lo:lo + batch_size], np.float32)).to(device)
-        maxes.append(batch_maxes(xi_b, xv_b))
+        maxes.append(batch_maxes((), {"xi_b": xi_b, "xv_b": xv_b}))
     amax = np.zeros(1 + len(net_names) * cfg.h_depth)
     if maxes:       # the one read
         amax = np.maximum(amax, torch.stack(maxes).cpu().numpy().max(axis=0))

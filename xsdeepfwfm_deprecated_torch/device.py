@@ -1,5 +1,5 @@
-"""Device resolution for the port's entry points, and seeded draws that give
-the same values on every device."""
+"""Device resolution for the port's entry points, seeded draws that give the
+same values on every device, and generators cloned in their state."""
 
 from __future__ import annotations
 
@@ -20,6 +20,14 @@ def scaled_normal(generator: torch.Generator, shape: Sequence[int], scale: float
         return torch.empty(tuple(shape), dtype=dtype, device=device)
     x = torch.randn(tuple(shape), generator=generator) * scale
     return x.to(dtype=dtype, device=device)
+
+
+def clone_generator(gen: torch.Generator) -> torch.Generator:
+    """A generator on ``gen``'s device in ``gen``'s state, for a warm-up that
+    must not advance ``gen``."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
 
 
 def exact_div(x: torch.Tensor, value: float) -> torch.Tensor:

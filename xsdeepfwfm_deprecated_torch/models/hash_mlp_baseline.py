@@ -114,31 +114,17 @@ class HashMLPBaseline:
                                             weight_decay=0.0))
         params = self.params
         opt_state = opt.init(params)
-        graphs = cuda_graph.Graphs()
-
-        def step(xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
-            """One step; on the card one replay of a graph captured for the
-            batch's shape, the loss copied out before the next replay."""
-            if not cuda_graph.on_card(self.device):
-                return train_step(params, opt_state, opt, xb, yb)
-
-            def warmup(xb, yb):     # on clones of the state
-                clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
-                train_step(clone(params), clone(opt_state), opt, xb, yb)
-            graph = graphs.get((tuple(xb.shape), tuple(yb.shape)),
-                               cuda_graph.state_key(params, opt_state),
-                               lambda: cuda_graph.Graphed(
-                                   lambda xb, yb: train_step(params, opt_state, opt, xb, yb),
-                                   (xb, yb), device=self.device, name="HashMLPBaseline.fit step",
-                                   warmup=warmup))
-            return graph(xb, yb).clone()
+        step = cuda_graph.Compiled(    # on the card a replay a step, the loss copied out
+            lambda params, opt_state, xb, yb: train_step(params, opt_state, opt, xb, yb),
+            "HashMLPBaseline.fit step", device=self.device, writes_state=True)
 
         bs = self.tcfg.batch_size
         rng = np.random.default_rng(self.tcfg.random_seed)
         for epoch in range(self.tcfg.n_epochs):
             perm = rng.permutation(len(y))
-            losses = [step(torch.from_numpy(x[perm[lo:lo + bs]]).to(self.device),
-                           torch.from_numpy(y[perm[lo:lo + bs]]).to(self.device))
+            losses = [step((params, opt_state),
+                           {"xb": torch.from_numpy(x[perm[lo:lo + bs]]).to(self.device),
+                            "yb": torch.from_numpy(y[perm[lo:lo + bs]]).to(self.device)})
                       for lo in range(0, len(y) - bs + 1, bs)]
             self.last_epoch_losses = torch.stack(losses).tolist() if losses else []  # one read
             total = sum(self.last_epoch_losses)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, on
 first use. The hash covers the source and the flags, so an edited source
 is rebuilt and a stale library is never loaded. Nothing here includes
-PyTorch's headers, which keeps a build to seconds.
+PyTorch's headers, which keeps a build to seconds. Each wrapper registers
+with :func:`counted`, which gives it a count of its launches.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
+
+from ...utils import cuda_graph
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,6 +32,17 @@ def _nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
     return path
+
+
+def counted(kernel: Callable) -> Callable:
+    """``kernel``, the wrapper of ``csrc/<its name>.cu``, with ``launches`` (0),
+    which it adds to at each launch on the card, registered in
+    ``utils.cuda_graph.KERNELS``: graphs keep it through a capture and add
+    the captured launches at each replay, and ``utils.profiling.counters``
+    reads it."""
+    kernel.launches = 0
+    cuda_graph.KERNELS[kernel.__name__] = kernel
+    return kernel
 
 
 def sources() -> list:

@@ -100,6 +100,7 @@ def check_leaves(p: Leaves, grads: Leaves, mu: Leaves, nu: Leaves, flush: Sequen
                for t in (bc1, bc2)), f"bc1 and bc2 must be one float32 value each on {device}")
 
 
+@_build.counted     # kernel launches on the card: one a step up to MAX_LEAVES leaves
 def fused_adam(p: Leaves, grads: Leaves, mu: Leaves, nu: Leaves, flush: Sequence[bool],
                bc1: torch.Tensor, bc2: torch.Tensor, *, lr: float, wd: float, b1: float,
                b2: float, eps: float) -> None:
@@ -142,6 +143,3 @@ def fused_adam(p: Leaves, grads: Leaves, mu: Leaves, nu: Leaves, flush: Sequence
             if rc != 0:
                 raise RuntimeError(f"fused_adam: CUDA error {rc} at launch")
             fused_adam.launches += 1
-
-
-fused_adam.launches = 0   # kernel launches on the card: one a step up to MAX_LEAVES leaves

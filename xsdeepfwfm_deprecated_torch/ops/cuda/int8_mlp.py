@@ -237,6 +237,7 @@ def launch_plan(x: torch.Tensor, layers_q: Layers, fc_q: Head, block_b: int,
     return route, block_b
 
 
+@_build.counted     # tower calls that launched on the card, by either route
 def int8_mlp(x: torch.Tensor, layers_q: Layers, fc_q: Head, block_b: int = 512,
              route: Optional[str] = None, prof: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, IN) f32 -> (B, 1) f32 through the fused int8 tower, with
@@ -280,6 +281,3 @@ def int8_mlp(x: torch.Tensor, layers_q: Layers, fc_q: Head, block_b: int = 512,
         raise RuntimeError(f"int8_mlp: CUDA error {rc} at launch ({route} route)")
     int8_mlp.launches += 1
     return out
-
-
-int8_mlp.launches = 0   # tower calls that launched on the card, by either route

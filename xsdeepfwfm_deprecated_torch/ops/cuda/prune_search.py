@@ -145,6 +145,7 @@ def _batches(groups: Sequence[Group]) -> List[List[int]]:
     return out
 
 
+@_build.counted     # kernel launches on the card: LAUNCHES a search
 @torch.no_grad()
 def prune_search(groups: Sequence[Group], targets: Sequence[torch.Tensor]) -> torch.Tensor:
     """Each group's magnitude threshold below which its ``target`` share of the
@@ -175,9 +176,6 @@ def prune_search(groups: Sequence[Group], targets: Sequence[torch.Tensor]) -> to
                 raise RuntimeError(f"prune_search: CUDA error {rc} at launch")
             prune_search.launches += LAUNCHES
     return work.view(torch.float32)[:, 3]    # GroupState.thr
-
-
-prune_search.launches = 0   # kernel launches on the card: LAUNCHES a search
 
 
 def kernel_math(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

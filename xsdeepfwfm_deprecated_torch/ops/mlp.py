@@ -9,12 +9,12 @@ is the same tower with fake-quant on input, weights and activations.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
-from ..device import constant, scaled_normal
+from ..device import clone_generator, constant, scaled_normal
 from .quantized import AmaxFn, fake_quant_per_tensor
 
 
@@ -29,6 +29,12 @@ class BatchShard:
     generator: torch.Generator
     batch: int
     start: int
+
+    def clone(self) -> "BatchShard":
+        """The same shard around a clone of its generator, for a warm-up that
+        must not advance it (``utils.cuda_graph.Compiled``, which registers
+        :attr:`generator` with its graphs)."""
+        return replace(self, generator=clone_generator(self.generator))
 
 
 def dropout(generator: Union[torch.Generator, BatchShard, None], x: torch.Tensor, rate: float,

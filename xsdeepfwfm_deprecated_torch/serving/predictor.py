@@ -17,7 +17,7 @@ waits for the card) and ``request.copy_out`` (the logits to host numpy).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -80,21 +80,12 @@ class Predictor:
             self._model = _tree.tree_map(lambda t: t.to(self.device), model)
             self._fn = lambda p, xi, xv: deepfwfm.forward(p, xi, xv, cfg,
                                                           lookup_fn=packed_lookup_serving)
-        self._graphs = cuda_graph.Graphs()
+        self._graphs = cuda_graph.Compiled(
+            self._forward, f"the Predictor's forward of a {type(self._model).__name__}",
+            device=self.device)
 
-    def _loaded(self, xi: torch.Tensor, xv: torch.Tensor) -> Callable[[], torch.Tensor]:
-        """What runs the forward on ``xi``, ``xv``: on the card the replay of
-        the shape's CUDA graph (captured on the shape's first request), the
-        batch already copied into its static buffers; on the CPU the eager
-        forward."""
-        if self.device.type != "cuda":
-            return lambda: self._fn(self._model, xi, xv)
-        shapes = (tuple(xi.shape), tuple(xv.shape))
-        graph = self._graphs.get(shapes, (), lambda: cuda_graph.Graphed(
-            lambda a, b: self._fn(self._model, a, b), (xi, xv), device=self.device,
-            name=f"the Predictor's forward of a {type(self._model).__name__} at {shapes}"))
-        graph.load(xi, xv)
-        return graph.replay
+    def _forward(self, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        return self._fn(self._model, xi, xv)
 
     @torch.inference_mode()
     def replay(self, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
@@ -103,7 +94,7 @@ class Predictor:
         the graph is replayed and its output tensor is returned: the next
         request of that shape overwrites it. On the CPU the eager forward."""
         with profiling.named_scope("request.copy_in"):
-            forward = self._loaded(xi, xv)
+            forward = self._graphs.load((), {"xi": xi, "xv": xv})
         with profiling.named_scope("request.launch"):
             return forward()
 

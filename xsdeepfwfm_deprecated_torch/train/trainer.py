@@ -244,14 +244,94 @@ def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
 
 
 def _collectives(mesh: Optional[mesh_mod.Mesh]) -> Dict[str, Any]:
-    """What a graph of a mesh's steps passes to :class:`..utils.cuda_graph.Graphed`:
-    the mesh's traffic as a counter, and its barrier before the capture."""
+    """What a compiled call of a mesh's steps passes to
+    :class:`..utils.cuda_graph.Compiled`: the mesh's traffic as a counter, its
+    barrier before a capture, and whether its backend's collectives can be
+    captured."""
     if mesh is None:
         return {}
-    return dict(counters=(cuda_graph.Log(mesh.traffic),), barrier=mesh.barrier)
+    return dict(counters=(cuda_graph.Log(mesh.traffic),), barrier=mesh.barrier,
+                capturable=mesh.capturable)
 
 
-class MultiStep:
+def _graph_name(function: str, forward_fn: ForwardFn) -> str:
+    return f"{function}({getattr(forward_fn, '__qualname__', '')})"
+
+
+_BATCH = ("xi", "xv", "y", "mask", "teacher", "count")    # a step's inputs, where given
+
+
+class _Steps:
+    """What :class:`TrainStep` and :class:`MultiStep` share: the step's
+    configuration and one :func:`train_step` on a batch, on a ``mesh`` this
+    rank's sharded step (``reduce`` sums the gradients over the ranks,
+    ``group`` is the batch's ranks for KD's softmax and QAT's scale, the
+    generator a :class:`..ops.mlp.BatchShard`)."""
+
+    name: str           # what the graphs are called
+
+    def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
+                 use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
+                 mesh: Optional[mesh_mod.Mesh] = None,
+                 reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                 group: Optional[mesh_mod.BatchGroup] = None):
+        self.mcfg, self.tcfg, self.optimizer, self.use_kd = mcfg, tcfg, optimizer, use_kd
+        self.forward_fn = forward_fn or deepfwfm.forward
+        self.mesh, self.reduce, self.group = mesh, reduce, group
+
+    def _step(self, params: Dict, opt_state: Any, generator, **batch) -> torch.Tensor:
+        return train_step(params, opt_state, batch, self.mcfg, self.tcfg, self.optimizer,
+                          reduce=self.reduce, generator=generator, forward_fn=self.forward_fn,
+                          group=self.group, teacher_logits=batch.get("teacher"))
+
+
+class TrainStep(_Steps):
+    """One train step a dispatch: what :func:`make_train_step` returns.
+
+    ``train_step(params, opt_state, batch, generator=None)`` updates
+    ``params`` and ``opt_state`` in place and returns the loss, a 0-d tensor
+    on their device that the next call does not overwrite. ``batch`` holds
+    ``xi``, ``xv``, ``y`` and ``mask``, the teacher's logits under
+    ``teacher`` for a KD step, and on a mesh this rank's rows with the global
+    batch's real-row count under ``count`` (``DeepFMEstimator._local_batches``).
+    On the card one CUDA graph replay of :func:`train_step` and its optimizer
+    update (on a mesh over NCCL with the gradient reduction inside), with the
+    dropout generator registered; on the CPU and over gloo the step runs
+    eagerly. Every batch is stepped, a rank's all-padding rows of a global
+    batch too, as the eager step does."""
+
+    name = "make_train_step"
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._graphs = cuda_graph.Compiled(self._step, _graph_name(self.name, self.forward_fn),
+                                           writes_state=True, **_collectives(self.mesh))
+
+    def __call__(self, params: Dict, opt_state: Any, batch: Dict[str, torch.Tensor],
+                 generator: Any = None) -> torch.Tensor:
+        with profiling.named_scope("train.step", unit=True):
+            if ("teacher" in batch) != self.use_kd:
+                raise ValueError("batch['teacher'] is the KD step's input, and only its")
+            if self.mesh is not None and "count" not in batch:
+                raise ValueError("a sharded step takes the global batch's real-row count as "
+                                 "batch['count']: its loss divides by it")
+            return self._graphs((params, opt_state, generator),
+                                {key: batch[key] for key in _BATCH if key in batch})
+
+
+def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
+                    use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
+                    mesh: Optional[mesh_mod.Mesh] = None,
+                    reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                    group: Optional[mesh_mod.BatchGroup] = None) -> TrainStep:
+    """One optimizer step a dispatch (the JAX package's jitted
+    ``make_train_step``, ``:63-85``); on a ``mesh``, a rank's sharded step
+    with ``reduce`` and ``group``. See :class:`TrainStep`."""
+    return TrainStep(mcfg, tcfg, optimizer, use_kd=use_kd, forward_fn=forward_fn, mesh=mesh,
+                     reduce=reduce, group=group)
+
+
+class MultiStep(_Steps):
     """K train steps over stacked ``(K, B, ...)`` batches in one dispatch,
     then one prune refresh where ``prune_kw`` is given: what
     :func:`make_multi_step` returns.
@@ -269,14 +349,12 @@ class MultiStep:
     and ``k_real`` (the number of real steps, which the host knows from its
     group) saves reading the mask back to count them.
 
-    On a ``mesh`` each step is this rank's sharded step: ``reduce`` sums the
-    gradients over the ranks, ``group`` is the batch's ranks (KD's softmax,
-    QAT's scale), ``generator`` a :class:`..ops.mlp.BatchShard`, and
-    ``count_k`` the ``(K,)`` real-row counts of the global batches, which the
-    losses divide by. Both ``k_real`` and ``count_k`` come from the global
-    group and are required there: a rank's share of the last global batch can
-    be all padding while another rank's is not (the JAX scan tests the sum of
-    the global mask), and a rank that skipped a step would leave the others'
+    On a ``mesh`` each step is this rank's sharded step, and ``count_k`` the
+    ``(K,)`` real-row counts of the global batches, which the losses divide
+    by. Both ``k_real`` and ``count_k`` come from the global group and are
+    required there: a rank's share of the last global batch can be all
+    padding while another rank's is not (the JAX scan tests the sum of the
+    global mask), and a rank that skipped a step would leave the others'
     collectives waiting.
 
     On the card a group is one CUDA graph replay: captured on the first call
@@ -293,102 +371,56 @@ class MultiStep:
     process groups allow and gloo's do not: over gloo (and on the CPU) every
     real step runs eagerly, in the same order."""
 
-    name = "make_multi_step"    # what its graphs are called
+    name = "make_multi_step"
 
-    def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
-                 use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
-                 prune_kw: Optional[Dict] = None, mesh: Optional[mesh_mod.Mesh] = None,
-                 reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
-                 group: Optional[mesh_mod.BatchGroup] = None):
-        self.mcfg, self.tcfg, self.optimizer = mcfg, tcfg, optimizer
-        self.use_kd, self.prune_kw = use_kd, prune_kw
-        self.forward_fn = forward_fn or deepfwfm.forward
-        self.mesh, self.reduce, self.group = mesh, reduce, group
-        self.capture = mesh is None or mesh.capturable     # chosen once, from the backend
-        self._graphs = cuda_graph.Graphs()
+    def __init__(self, *args, prune_kw: Optional[Dict] = None, **kw):
+        super().__init__(*args, **kw)
+        self.prune_kw = prune_kw
+        self._graphs = cuda_graph.Compiled(self._steps, _graph_name(self.name, self.forward_fn),
+                                           writes_state=True, **_collectives(self.mesh))
 
-    def _steps(self, params: Dict, opt_state: Any, k_in: Dict[str, torch.Tensor], generator,
-               live: List[bool]) -> torch.Tensor:
+    def _steps(self, params: Dict, opt_state: Any, generator, live: Tuple[bool, ...],
+               **k_in: torch.Tensor) -> torch.Tensor:
         losses = []
         for i, run in enumerate(live):
             if not run:
                 losses.append(torch.zeros((), device=k_in["mask"].device))
                 continue
-            batch = {key: k_in[key][i] for key in ("xi", "xv", "y", "mask", "count")
-                     if key in k_in}
-            losses.append(train_step(
-                params, opt_state, batch, self.mcfg, self.tcfg, self.optimizer,
-                reduce=self.reduce, generator=generator, forward_fn=self.forward_fn,
-                group=self.group, teacher_logits=k_in["teacher"][i] if self.use_kd else None))
+            losses.append(self._step(params, opt_state, generator,
+                                     **{key: x[i] for key, x in k_in.items() if key in _BATCH}))
         if self.prune_kw is not None:
             prune_params_(params, k_in["adaptive"], **self.prune_kw)
         return torch.stack(losses)
 
     def __call__(self, params: Dict, opt_state: Any, xi_k: torch.Tensor, xv_k: torch.Tensor,
-                 y_k: torch.Tensor, mask_k: torch.Tensor,
-                 generator: Optional[cuda_graph.Generator] = None,
+                 y_k: torch.Tensor, mask_k: torch.Tensor, generator: Any = None,
                  teacher_k: Optional[torch.Tensor] = None, adaptive: Any = None, *,
                  k_real: Optional[int] = None,
                  count_k: Optional[torch.Tensor] = None) -> torch.Tensor:
         with profiling.named_scope("train.step", unit=True):
-            return self._call(params, opt_state, xi_k, xv_k, y_k, mask_k, generator, teacher_k,
-                              adaptive, k_real, count_k)
-
-    def _call(self, params, opt_state, xi_k, xv_k, y_k, mask_k, generator, teacher_k, adaptive,
-              k_real, count_k) -> torch.Tensor:
-        if (teacher_k is None) == self.use_kd:
-            raise ValueError("teacher_k is the KD multi-step's input, and only its")
-        if (adaptive is None) == (self.prune_kw is not None):
-            raise ValueError("adaptive is the pruning multi-step's input, and only its")
-        if self.mesh is not None and (k_real is None or count_k is None):
-            raise ValueError("a sharded multi-step takes k_real and count_k from the global "
-                             "group: a rank's rows of a batch can be all padding where another "
-                             "rank's are not, and every rank must run the same steps")
-        k = xi_k.shape[0]
-        device = _tree.leaves(params)[0].device
-        if k_real is None:
-            live = (mask_k.reshape(k, -1).sum(dim=1) > 0).tolist()
-        else:
-            live = [i < k_real for i in range(k)]
-        k_in = {"xi": xi_k, "xv": xv_k, "y": y_k, "mask": mask_k, "teacher": teacher_k,
-                "count": count_k}
-        k_in = {key: t.to(device, non_blocking=True) for key, t in k_in.items() if t is not None}
-        if self.prune_kw is not None:       # a 0-d device tensor, made by a fill
-            k_in["adaptive"] = (adaptive.to(device=device, dtype=torch.float32)
-                                if isinstance(adaptive, torch.Tensor)
-                                else torch.full((), float(adaptive), dtype=torch.float32,
-                                                device=device))
-        if not (cuda_graph.on_card(device) and self.capture):
-            return self._steps(params, opt_state, k_in, generator, live)
-        if torch.is_anomaly_enabled():
-            raise RuntimeError("autograd's anomaly detection (utils.debug.nan_debugging) reads "
-                               "values back every step and cannot be captured: inside it fit "
-                               "steps eagerly at steps_per_call=1")
-        shapes = (tuple((key, tuple(t.shape), t.dtype) for key, t in k_in.items()), tuple(live))
-        state = cuda_graph.state_key(params, opt_state) + (id(generator),)
-        graph = self._graphs.get(shapes, state, lambda: self._capture(
-            params, opt_state, generator, k_in, device, live))
-        return graph(*k_in.values()).clone()
-
-    def _capture(self, params, opt_state, generator, k_in: Dict[str, torch.Tensor],
-                 device, live: List[bool]) -> cuda_graph.Graphed:
-        names = tuple(k_in)
-        first = live.index(True) if any(live) else 0    # the step the warm-up runs
-
-        def steps(*xs):
-            return self._steps(params, opt_state, dict(zip(names, xs)), generator, live)
-
-        def warmup(*xs):   # one real step and the refresh, on clones of the state
-            one = {key: x if key == "adaptive" else x[first:first + 1]
-                   for key, x in zip(names, xs)}
-            clone = lambda tree: _tree.tree_map(torch.clone, tree)   # noqa: E731
-            self._steps(clone(params), clone(opt_state), one,
-                        cuda_graph.clone_generator(generator), [any(live)])
-
-        name = f"{self.name}({getattr(self.forward_fn, '__qualname__', self.forward_fn)})"
-        return cuda_graph.Graphed(
-            steps, list(k_in.values()), device=device, name=name, warmup=warmup,
-            generators=() if generator is None else (generator,), **_collectives(self.mesh))
+            if (teacher_k is None) == self.use_kd:
+                raise ValueError("teacher_k is the KD multi-step's input, and only its")
+            if (adaptive is None) == (self.prune_kw is not None):
+                raise ValueError("adaptive is the pruning multi-step's input, and only its")
+            if self.mesh is not None and (k_real is None or count_k is None):
+                raise ValueError("a sharded multi-step takes k_real and count_k from the global "
+                                 "group: a rank's rows of a batch can be all padding where "
+                                 "another rank's are not, and every rank must run the same steps")
+            k = xi_k.shape[0]
+            if k_real is None:
+                live = tuple((mask_k.reshape(k, -1).sum(dim=1) > 0).tolist())
+            else:
+                live = tuple(i < k_real for i in range(k))
+            k_in = {"xi": xi_k, "xv": xv_k, "y": y_k, "mask": mask_k, "teacher": teacher_k,
+                    "count": count_k}
+            k_in = {key: t for key, t in k_in.items() if t is not None}
+            if self.prune_kw is not None:       # a 0-d device tensor, made by a fill
+                device = _tree.leaves(params)[0].device
+                k_in["adaptive"] = (adaptive.to(device=device, dtype=torch.float32)
+                                    if isinstance(adaptive, torch.Tensor)
+                                    else torch.full((), float(adaptive), dtype=torch.float32,
+                                                    device=device))
+            return self._graphs((params, opt_state, generator), k_in, live=live)
 
 
 def make_multi_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
@@ -406,44 +438,6 @@ def make_multi_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, 
                      prune_kw=prune_kw, mesh=mesh, reduce=reduce, group=group)
 
 
-class TrainStep(MultiStep):
-    """One train step a dispatch: what :func:`make_train_step` returns.
-
-    ``train_step(params, opt_state, batch, generator=None)`` updates
-    ``params`` and ``opt_state`` in place and returns the loss, a 0-d tensor
-    on their device that the next call does not overwrite. ``batch`` holds
-    ``xi``, ``xv``, ``y`` and ``mask``, the teacher's logits under
-    ``teacher`` for a KD step, and on a mesh this rank's rows with the global
-    batch's real-row count under ``count`` (``DeepFMEstimator._local_batches``).
-    It is :class:`MultiStep` with K=1: on the card one CUDA graph replay of
-    :func:`train_step` and its optimizer update (on a mesh over NCCL with the
-    gradient reduction inside), with the dropout generator registered; on the
-    CPU and over gloo the step runs eagerly. Every batch is stepped, a rank's
-    all-padding rows of a global batch too, as the eager step does."""
-
-    name = "make_train_step"
-
-    def __call__(self, params: Dict, opt_state: Any, batch: Dict[str, torch.Tensor],
-                 generator: Optional[cuda_graph.Generator] = None) -> torch.Tensor:
-        one = {key: batch[key][None] for key in ("xi", "xv", "y", "mask", "teacher", "count")
-               if key in batch}
-        return super().__call__(params, opt_state, one["xi"], one["xv"], one["y"], one["mask"],
-                                generator, one.get("teacher"), k_real=1,
-                                count_k=one.get("count"))[0]
-
-
-def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, optimizer: Optimizer, *,
-                    use_kd: bool = False, forward_fn: Optional[ForwardFn] = None,
-                    mesh: Optional[mesh_mod.Mesh] = None,
-                    reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
-                    group: Optional[mesh_mod.BatchGroup] = None) -> TrainStep:
-    """One optimizer step a dispatch (the JAX package's jitted
-    ``make_train_step``, ``:63-85``); on a ``mesh``, a rank's sharded step
-    with ``reduce`` and ``group``. See :class:`TrainStep`."""
-    return TrainStep(mcfg, tcfg, optimizer, use_kd=use_kd, forward_fn=forward_fn, mesh=mesh,
-                     reduce=reduce, group=group)
-
-
 class PruneRefresh:
     """One DeepLight prune refresh a dispatch, the JAX package's jitted
     ``prune_params`` (``compression/pruning.py:108-109``):
@@ -457,87 +451,68 @@ class PruneRefresh:
 
     def __init__(self, prune_kw: Dict, mesh: Optional[mesh_mod.Mesh] = None):
         self.prune_kw, self.mesh = prune_kw, mesh
-        self.capture = mesh is None or mesh.capturable
-        self._graphs = cuda_graph.Graphs()
+        self._graphs = cuda_graph.Compiled(self._refresh, self.name, writes_state=True,
+                                           **_collectives(mesh))
+
+    def _refresh(self, params: Dict, target: torch.Tensor) -> None:
+        prune_params_(params, target, **self.prune_kw)
 
     def __call__(self, params: Dict, adaptive: float) -> None:
         with profiling.named_scope("train.refresh"):
-            self._call(params, adaptive)
-
-    def _call(self, params: Dict, adaptive: float) -> None:
-        device = _tree.leaves(params)[0].device
-        target = torch.full((), float(adaptive), dtype=torch.float32, device=device)
-        if not (cuda_graph.on_card(device) and self.capture):
-            prune_params_(params, target, **self.prune_kw)
-            return
-
-        def warmup(a):      # on clones of the parameters
-            prune_params_(_tree.tree_map(torch.clone, params), a, **self.prune_kw)
-        self._graphs.get((), cuda_graph.state_key(params), lambda: cuda_graph.Graphed(
-            lambda a: prune_params_(params, a, **self.prune_kw), (target,), device=device,
-            name=self.name, warmup=warmup, **_collectives(self.mesh)))(target)
+            target = torch.full((), float(adaptive), dtype=torch.float32,
+                                device=_tree.leaves(params)[0].device)
+            self._graphs((params,), {"target": target})
 
 
 EVAL_SCAN_K = 8
 
 
-class ScanEval:
-    """The eval forward of K stacked batches in one dispatch:
-    ``scan_eval(params, xi_k, xv_k)`` gives the ``(K, B)`` logits (a copy,
-    which the next call does not overwrite). On a ``mesh`` the inputs are
-    this rank's rows of each batch, and each batch's logits are gathered
-    over the ranks of ``axes``, so that every rank returns the ``(K,
-    B_global)`` logits. On the card one CUDA graph replay, captured for each
-    input shape and parameter tree (with the gathers inside, over NCCL); on
-    the CPU and over gloo K eager forwards."""
+class _Eval:
+    """The eval forward a dispatch, on a ``mesh`` of this rank's rows with
+    each batch's logits gathered over the ranks of ``axes``, so that every
+    rank returns them all. On the card one CUDA graph replay, captured for
+    each input shape and parameter tree (with the gathers inside, over NCCL);
+    on the CPU and over gloo eager forwards."""
 
-    name = "make_scan_eval_fn"    # what its graphs are called
+    name: str           # what the graphs are called
 
     def __init__(self, mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
                  mesh: Optional[mesh_mod.Mesh] = None, axes: Optional[mesh_mod.Axes] = None):
         self.mcfg = mcfg
         self.forward_fn = forward_fn or deepfwfm.forward
         self.mesh, self.axes = mesh, axes
-        self._graphs = cuda_graph.Graphs()
+        self._graphs = cuda_graph.Compiled(self._forwards, _graph_name(self.name, self.forward_fn),
+                                           **_collectives(mesh))
 
-    def _forwards(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
-        out = []
-        for i in range(xi_k.shape[0]):
-            logits = self.forward_fn(params, xi_k[i], xv_k[i], self.mcfg)
-            if self.mesh is not None:
-                logits = self.mesh.all_gather(logits, self.axes).reshape(-1)
-            out.append(logits)
-        return torch.stack(out)
-
-    @torch.inference_mode()
-    def __call__(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
-        return self._run(params, xi_k, xv_k)
-
-    def _run(self, params: Dict, xi_k: torch.Tensor, xv_k: torch.Tensor) -> torch.Tensor:
-        device, mesh = _tree.leaves(params)[0].device, self.mesh
-        if not (cuda_graph.on_card(device) and (mesh is None or mesh.capturable)):
-            return self._forwards(params, xi_k.to(device), xv_k.to(device))
-        graph = self._graphs.get(
-            (tuple(xi_k.shape), tuple(xv_k.shape)), cuda_graph.state_key(params),
-            lambda: cuda_graph.Graphed(
-                lambda xi, xv: self._forwards(params, xi, xv), (xi_k, xv_k), device=device,
-                name=f"{self.name}({getattr(self.forward_fn, '__qualname__', '')})",
-                **_collectives(mesh)))
-        return graph(xi_k, xv_k).clone()
-
-
-class EvalFn(ScanEval):
-    """The eval forward of one batch a dispatch: ``eval_fn(params, xi, xv)``
-    gives the ``(B,)`` logits (a copy, which the next call does not
-    overwrite), on a ``mesh`` gathered over the ranks of ``axes``. It is
-    :class:`ScanEval` with K=1: on the card one CUDA graph replay, captured
-    for each input shape and parameter tree."""
-
-    name = "make_eval_fn"
+    def _forward(self, params: Dict, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        logits = self.forward_fn(params, xi, xv, self.mcfg)
+        if self.mesh is not None:
+            logits = self.mesh.all_gather(logits, self.axes).reshape(-1)
+        return logits
 
     @torch.inference_mode()
     def __call__(self, params: Dict, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
-        return self._run(params, xi[None], xv[None])[0]
+        return self._graphs((params,), {"xi": xi, "xv": xv})
+
+
+class ScanEval(_Eval):
+    """The eval forward of K stacked batches in one dispatch:
+    ``scan_eval(params, xi_k, xv_k)`` gives the ``(K, B)`` logits (a copy,
+    which the next call does not overwrite); see :class:`_Eval`."""
+
+    name = "make_scan_eval_fn"
+
+    def _forwards(self, params: Dict, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self._forward(params, xi[i], xv[i]) for i in range(xi.shape[0])])
+
+
+class EvalFn(_Eval):
+    """The eval forward of one batch a dispatch: ``eval_fn(params, xi, xv)``
+    gives the ``(B,)`` logits (a copy, which the next call does not
+    overwrite); see :class:`_Eval`."""
+
+    name = "make_eval_fn"
+    _forwards = _Eval._forward
 
 
 def make_eval_fn(mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,

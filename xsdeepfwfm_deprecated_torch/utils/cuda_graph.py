@@ -5,68 +5,82 @@ once for each input shape (``jax.jit``), and ``make_multi_step`` and
 ``make_scan_eval_fn`` put K steps into one dispatch through ``lax.scan``. On
 the card the counterpart is a CUDA graph: a call's work is captured once for
 each input shape and then replayed, one launch for all of its kernels.
+
+:class:`Compiled` is the port's ``jax.jit``: every compiled call of the port
+(the train step, the K-step group, the prune refresh, both eval fns, the
+``Predictor``, ``calibrate`` and the hash-MLP step) goes through it, and it
+alone decides, on every call:
+
+* eager or replay: a graph replays exactly where the call runs on the card
+  and its collectives can be captured (NCCL; not gloo, whose collectives go
+  through the host); elsewhere the function runs eagerly. On the card a call
+  that writes state raises inside autograd's anomaly mode, which reads values
+  back and cannot be captured;
+* the graph: one for each key (the inputs' names, shapes and dtypes, what the
+  caller adds as static, and whether tracing is on), captured again when the
+  state has moved (the address, shape and dtype of each of its tensors and the
+  identity of each generator), which frees the old capture. A held graph keeps
+  the state it was captured on alive, so state that was replaced has moved on
+  every rank of a mesh alike, and the ranks capture (with their collectives)
+  together;
+* the warm-up: a call that writes state warms up on clones of the state and of
+  its generators;
+* the output: a copy, which the next replay does not overwrite (``load``
+  returns the replay itself, whose output the next replay overwrites).
+
 :class:`Graphed` holds one capture:
 
 * static input buffers: a call copies its inputs into them (non-blocking, on
-  the current stream), replays, and returns the static outputs, which the
-  next replay overwrites: the caller copies out what it keeps;
+  the current stream), replays, and returns the static outputs;
 * before capture, one warm-up call on the capture's side stream, so that
   what the function makes on first use exists before capture (the tensors of
   ``device.constant``, the kernel library of ``ops.cuda``, cuBLAS's workspace,
-  autograd's engine). A function that changes state (a train step) passes its
-  own ``warmup``, which runs on clones;
+  autograd's engine);
 * the ``torch.Generator`` s the function draws from are registered with the
-  graph (a :class:`..ops.mlp.BatchShard` through the generator it wraps), so
-  that each replay draws the numbers that eager calls would have drawn next
-  from them;
+  graph, so that each replay draws the numbers that eager calls would have
+  drawn next from them;
 * what the function counts (:class:`Counter`): the launches of the port's
-  kernels (:data:`KERNELS`) and, on a mesh, the collectives of
-  ``Mesh.traffic``. The warm-up and the capture are set-up, like a compile,
-  and leave every counter as they found it; each replay adds what the
-  capture recorded.
+  kernels (:data:`KERNELS`, which ``ops/cuda`` fills) and, on a mesh, the
+  collectives of ``Mesh.traffic``. The warm-up and the capture are set-up,
+  like a compile, and leave every counter as they found it; each replay adds
+  what the capture recorded;
 * spans (:mod:`.profiling`): a capture made with tracing on records each
   span opened inside it as a pair of timing events in the graph, and each
   replay's device time per span is read into the program's spans
-  (:class:`.profiling.DeviceSpans`). Whether tracing is on is part of the key
-  of :meth:`Graphs.get`, so turning it on captures a traced variant beside a
-  graph captured with it off, and turning it off goes back to that graph.
-  :data:`CAPTURES` logs every capture that :class:`Graphs` makes, by name and
-  time, which :func:`.profiling.counters` reads; a replay counts nothing.
+  (:class:`.profiling.DeviceSpans`). :data:`CAPTURES` logs every capture that
+  :class:`Compiled` makes, by name and time, which :func:`.profiling.counters`
+  reads; a replay counts nothing.
 
-A graph may hold ``torch.distributed`` collectives where the backend can
-capture them (NCCL; not gloo, whose collectives go through the host): the
-warm-up runs each of them once eagerly on every rank, which makes NCCL's
-communicators, and ``barrier`` waits for every rank before the capture. The
-capture is ``thread_local``: NCCL's watchdog thread queries its events while
-it runs, which would end a ``global`` capture.
+A graph's collectives: the warm-up runs each of them once eagerly on every
+rank, which makes NCCL's communicators, and ``barrier`` waits for every rank
+before the capture. The capture is ``thread_local``: NCCL's watchdog thread
+queries its events while it runs, which would end a ``global`` capture.
 
 A failure to capture raises, naming the function. Nothing gives way to eager
-calls on the card. On the CPU nothing is captured: the callers ask
-:func:`on_card` and run their functions eagerly there.
+calls on the card.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
-from dataclasses import replace
-from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
+import weakref
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import _tree
-from ..ops.cuda.fused_adam import fused_adam
-from ..ops.cuda.int8_mlp import int8_mlp
-from ..ops.cuda.prune_search import prune_search
-from ..ops.mlp import BatchShard
+from ..device import clone_generator
 from . import profiling
 
-# the wrappers of csrc/, each counting its launches
-KERNELS = (int8_mlp, fused_adam, prune_search)
+KERNELS: Dict[str, Any] = {}    # the wrappers of csrc/ by name, with their `launches` (ops/cuda)
 
 
 class Counter:
     """What a graphed function counts, seen as a mark now, what was added
     since a mark, a return to a mark, and adding again what was added."""
+
+    name: str
 
     def mark(self) -> Any:
         raise NotImplementedError
@@ -85,7 +99,7 @@ class Launches(Counter):
     """A kernel wrapper's ``launches``."""
 
     def __init__(self, kernel: Any):
-        self.kernel = kernel
+        self.kernel, self.name = kernel, kernel.__name__
 
     def mark(self) -> int:
         return self.kernel.launches
@@ -103,8 +117,8 @@ class Launches(Counter):
 class Log(Counter):
     """A list that is only appended to, such as ``Mesh.traffic``."""
 
-    def __init__(self, entries: list):
-        self.entries = entries
+    def __init__(self, entries: list, name: str = "traffic"):
+        self.entries, self.name = entries, name
 
     def mark(self) -> int:
         return len(self.entries)
@@ -119,66 +133,122 @@ class Log(Counter):
         self.entries.extend(added)
 
 
-COUNTERS: Tuple[Counter, ...] = tuple(Launches(k) for k in KERNELS)
-CAPTURES: List[Tuple[str, int]] = []    # (graph name, perf_counter_ns) of each capture of Graphs
+CAPTURES: List[Tuple[str, int]] = []    # (graph name, perf_counter_ns) of each capture of Compiled
 
 
-def on_card(device: torch.device) -> bool:
+def _on_card(device: torch.device) -> bool:
     """Whether work on ``device`` is captured into graphs: on the card, not on
     the CPU."""
     return device.type == "cuda"
 
 
-def state_key(*trees: Any) -> Tuple:
-    """The address, shape and dtype of every tensor of ``trees``: a graph
-    reads and writes its state at the addresses it was captured with, so a
-    caller keeps one graph for each key."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                 for tree in trees for t in _tree.leaves(tree))
+def _state_key(leaves: Sequence[Any]) -> Tuple:
+    """The address, shape and dtype of every tensor of the state and the
+    identity of every generator: a graph reads and writes its state at the
+    addresses it was captured with."""
+    return tuple((t.data_ptr(), t.shape, t.dtype) if isinstance(t, torch.Tensor) else id(t)
+                 for t in leaves)
 
 
-class Graphs:
-    """The graphs of one caller: one for each input shape, as ``jax.jit``
-    keeps one executable for each, captured again when the state it reads
-    (:func:`state_key`) has moved, which frees the old capture's memory. A
-    held graph keeps the state it was captured on alive, so state that was
-    replaced has moved on every rank of a mesh alike, and the ranks capture
-    (with their collectives) together. A graph captured with tracing on is
-    held apart from the one captured with it off."""
+def _generator(leaf: Any) -> torch.Generator:
+    """The ``torch.Generator`` a generator of the state draws from: itself, or
+    the one a wrapper holds (``ops.mlp.BatchShard``)."""
+    return leaf if isinstance(leaf, torch.Generator) else leaf.generator
 
-    def __init__(self):
-        self._held: Dict[Hashable, Tuple[Tuple, "Graphed"]] = {}
+
+def _clone(leaf: Any) -> Any:
+    """A leaf of the state for a warm-up that must leave the state as it was:
+    a tensor's clone, a generator in the same state (a wrapper's own clone)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.clone()
+    return clone_generator(leaf) if isinstance(leaf, torch.Generator) else leaf.clone()
+
+
+class Compiled:
+    """``fn`` as one compiled call, the port's ``jax.jit``:
+    ``compiled(state, inputs, **static)`` runs ``fn(*state, **static,
+    **inputs)``, on the card as a replay of a CUDA graph (see the module's
+    docstring for what it decides).
+
+    ``state`` is a tuple of what ``fn`` reads, and with ``writes_state``
+    updates in place: trees of tensors (parameters, optimizer state) and the
+    generators it draws from (a ``torch.Generator``, or a wrapper of one with
+    a ``generator`` and a ``clone()``, as ``ops.mlp.BatchShard``; None for
+    none). ``inputs`` are the tensors that change from call to call, by name;
+    ``static`` what the caller adds to the graph's key (hashable values, such
+    as a multi-step's pattern of real steps). The call runs on ``device``
+    where it is given (the ``Predictor``, whose inputs are host tensors and
+    whose model is not state), else on the device of the state's first tensor.
+    ``counters``, ``barrier`` and ``capturable`` are a mesh's: what the
+    function counts besides the kernels' launches, what runs between the
+    warm-up and the capture, and whether its collectives can be captured.
+    ``len(compiled)`` is the number of graphs it holds.
+
+    A method ``fn`` is held weakly: its object holds this ``Compiled``, and
+    the cycle would leave their graphs to Python's cyclic collector, which
+    can free one in the middle of another capture and so end it."""
+
+    def __init__(self, fn: Callable[..., Any], name: str, *,
+                 device: Optional[torch.device] = None, writes_state: bool = False,
+                 counters: Sequence[Counter] = (), barrier: Optional[Callable[[], None]] = None,
+                 capturable: bool = True):
+        self._fn = weakref.WeakMethod(fn) if inspect.ismethod(fn) else (lambda: fn)
+        self.name, self.device, self.writes_state = name, device, writes_state
+        self.counters, self.barrier, self.capturable = counters, barrier, capturable
+        self._held: Dict[Hashable, Tuple[Tuple, Graphed]] = {}
 
     def __len__(self) -> int:
         return len(self._held)
 
-    def get(self, shapes: Hashable, state: Tuple, capture: Callable[[], "Graphed"]) -> "Graphed":
-        key = (shapes, profiling.enabled())
+    def __call__(self, state: Tuple, inputs: Dict[str, torch.Tensor], **static: Hashable) -> Any:
+        run, replay = self._loaded(state, inputs, static)
+        return _tree.tree_map(torch.clone, run()) if replay else run()
+
+    def load(self, state: Tuple, inputs: Dict[str, torch.Tensor],
+             **static: Hashable) -> Callable[[], Any]:
+        """What runs the call, its inputs loaded: on the card the graph's
+        replay, whose output the next replay overwrites; elsewhere the eager
+        call."""
+        return self._loaded(state, inputs, static)[0]
+
+    def _loaded(self, state: Tuple, inputs: Dict[str, torch.Tensor],
+                static: Dict[str, Hashable]) -> Tuple[Callable[[], Any], bool]:
+        leaves = _tree.leaves(state) if state else ()
+        device = self.device or next(t.device for t in leaves if isinstance(t, torch.Tensor))
+        if not (self.capturable and _on_card(device)):
+            moved = {k: t.to(device, non_blocking=True) for k, t in inputs.items()}
+            return (lambda: self._fn()(*state, **static, **moved)), False
+        if self.writes_state and torch.is_anomaly_enabled():
+            raise RuntimeError(f"autograd's anomaly detection (utils.debug.nan_debugging) reads "
+                               f"values back every step and cannot be captured ({self.name}): "
+                               f"inside it fit steps eagerly at steps_per_call=1")
+        key = (tuple([(k, t.shape, t.dtype) for k, t in inputs.items()]),
+               tuple(static.items()) if static else (), profiling.enabled())
+        at = _state_key(leaves) if leaves else ()
         held = self._held.get(key)
-        if held is None or held[0] != state:
+        if held is None or held[0] != at:
             self._held.pop(key, None)
-            held = self._held[key] = (state, capture())
-            CAPTURES.append((held[1].name, time.perf_counter_ns()))
-        return held[1]
+            held = self._held[key] = (at, self._capture(device, state, leaves, inputs, static))
+            CAPTURES.append((self.name, time.perf_counter_ns()))
+        held[1].load(*inputs.values())
+        return held[1].replay, True
 
+    def _capture(self, device: torch.device, state: Tuple, leaves: Sequence[Any],
+                 inputs: Dict[str, torch.Tensor], static: Dict[str, Hashable]) -> "Graphed":
+        names, fn = tuple(inputs), self._fn()
 
-Generator = Union[torch.Generator, BatchShard]
-
-
-def clone_generator(gen: Optional[Generator]) -> Optional[Generator]:
-    """A generator on ``gen``'s device in ``gen``'s state, for a warm-up that
-    must not advance ``gen`` (a ``BatchShard`` around a clone of its own)."""
-    if gen is None:
-        return None
-    if isinstance(gen, BatchShard):
-        return replace(gen, generator=clone_generator(gen.generator))
-    out = torch.Generator(device=gen.device)
-    out.set_state(gen.get_state())
-    return out
-
-
-def _torch_generator(gen: Generator) -> torch.Generator:
-    return gen.generator if isinstance(gen, BatchShard) else gen
+        # each run gets views of its own over the static buffers, as each trace of jax.jit gets
+        # tracers of its own: code that caches by a tensor's identity (the all-to-all lookup's
+        # one index exchange a forward) must not carry the warm-up's result into the graph
+        def call(on: Tuple, xs: Sequence[torch.Tensor]) -> Any:
+            return fn(*on, **static, **{k: x.view_as(x) for k, x in zip(names, xs)})
+        warmup = ((lambda *xs: call(_tree.tree_map(_clone, state), xs)) if self.writes_state
+                  else None)     # on clones of the state and of its generators
+        return Graphed(lambda *xs: call(state, xs), list(inputs.values()), device=device,
+                       name=self.name, warmup=warmup,
+                       generators=[_generator(g) for g in leaves
+                                   if not isinstance(g, torch.Tensor)],
+                       counters=self.counters, barrier=self.barrier)
 
 
 class Graphed:
@@ -190,18 +260,18 @@ class Graphed:
     ``counters`` are what ``fn`` counts besides the kernels' launches;
     ``barrier`` runs between the warm-up and the capture (a mesh's, where
     ``fn`` holds collectives). ``outputs`` is what ``fn`` returned during
-    capture, ``captured`` what each counter recorded, ``device_spans`` the
-    timing events of the spans opened during a capture made with tracing on
-    (None without)."""
+    capture, ``captured`` what each counter recorded, by the counter's name,
+    ``device_spans`` the timing events of the spans opened during a capture
+    made with tracing on (None without)."""
 
     def __init__(self, fn: Callable[..., Any], inputs: Sequence[torch.Tensor], *,
                  device: torch.device, name: str,
                  warmup: Optional[Callable[..., Any]] = None,
-                 generators: Sequence[Generator] = (),
+                 generators: Sequence[torch.Generator] = (),
                  counters: Sequence[Counter] = (),
                  barrier: Optional[Callable[[], None]] = None):
         self.name = name
-        self.counters: List[Counter] = list(COUNTERS) + list(counters)
+        self.counters: List[Counter] = [Launches(k) for k in KERNELS.values()] + list(counters)
         before = [c.mark() for c in self.counters]
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in inputs]
         for buf, t in zip(self.inputs, inputs):
@@ -217,14 +287,14 @@ class Graphed:
                 barrier()
             self.graph = torch.cuda.CUDAGraph()
             for gen in generators:
-                self.graph.register_generator_state(_torch_generator(gen))
+                self.graph.register_generator_state(gen)
             start = [c.mark() for c in self.counters]
             with profiling.capturing(device) as spans:
                 with torch.cuda.graph(self.graph, stream=stream,
                                       capture_error_mode="thread_local"):
                     self.outputs = fn(*self.inputs)
             self.device_spans = spans if spans is not None and spans.scopes else None
-            self.captured = tuple(c.since(m) for c, m in zip(self.counters, start))
+            self.captured = {c.name: c.since(m) for c, m in zip(self.counters, start)}
         except RuntimeError as err:
             raise RuntimeError(f"{name} cannot be captured into a CUDA graph: {err}") from err
         finally:
@@ -236,8 +306,8 @@ class Graphed:
         if self.device_spans is not None:
             self.device_spans.before_replay()
         self.graph.replay()
-        for c, added in zip(self.counters, self.captured):
-            c.add(added)
+        for c in self.counters:
+            c.add(self.captured[c.name])
         if self.device_spans is not None:
             self.device_spans.replayed()
         return self.outputs
@@ -247,7 +317,3 @@ class Graphed:
         current stream)."""
         for buf, t in zip(self.inputs, inputs):
             buf.copy_(t, non_blocking=True)
-
-    def __call__(self, *inputs: torch.Tensor) -> Any:
-        self.load(*inputs)
-        return self.replay()

@@ -24,7 +24,7 @@ names and signatures; every timer returns seconds per call.
   waits for its copy out), without a wait; otherwise the host waits for one
   replay in :data:`READ_EVERY` of that graph, a span ``trace.read`` of its
   own, and the others go unread. A graph captured with tracing off holds no
-  events: :class:`.cuda_graph.Graphs` keeps a traced variant beside it.
+  events: :class:`.cuda_graph.Compiled` keeps a traced variant beside it.
 * :func:`counters` reads the graphs' capture counts by name and the kernels'
   launches (:class:`.cuda_graph.Counter`).
 * :func:`trace` runs ``torch.profiler.profile`` over the block with tracing
@@ -329,13 +329,13 @@ def capturing(device: torch.device):
 
 def counters(**extra) -> Dict[str, Dict]:
     """What the program has counted: the graphs captured, by name (every
-    :class:`.cuda_graph.Graphs` counts its captures), the launches of each
+    :class:`.cuda_graph.Compiled` counts its captures), the launches of each
     kernel of ``cuda_graph.KERNELS``, and the mark of each
     :class:`.cuda_graph.Counter` given by name in ``extra`` (a ``Log``'s
     entry count)."""
     from . import cuda_graph
     return {"captures": dict(collections.Counter(name for name, _ in cuda_graph.CAPTURES)),
-            "launches": {c.kernel.__name__: c.mark() for c in cuda_graph.COUNTERS},
+            "launches": {name: k.launches for name, k in cuda_graph.KERNELS.items()},
             **({"extra": {k: c.mark() for k, c in extra.items()}} if extra else {})}
 
 
