@@ -136,15 +136,24 @@ Phases, each printed on its own line:
      a refresh, then device time as a CUDA graph of 20 calls (median of 10) beside its
      bound (2 x 4 B a pruned value at 3.35 TB/s) and the torch path's 40 passes (the
      yardstick), a PruneRefresh replay between events, and the refresh's top operations.
+ 26. xDeepFM's CIN layer kernels (csrc/cin.cu) at the xDeepFM cell's shapes (B=4096, m=39,
+     D=10, maps 200 x 3) and at ragged ones: each layer's output and its three gradients
+     within 1e-5 of the largest value against the plain (materialized) version, two runs
+     bit-equal; device time of the forward and the backward as a CUDA graph of 20 calls
+     (median of 10) beside the bound (the FLOP at 67 TFLOP/s fp32), the plain version and
+     cuBLAS's z @ W^T on a materialized z (the yardstick); then the cell's training step
+     through make_train_step: the kernels' launches on every replay, the step's peak
+     memory below one (B*D, H*m) product, ms a step and its top device operations.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17 to 25 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17 to 26 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
 three arms' AUCs within 2e-4 (the 41.3M-row run's serving check), without the result lines.
 then one JSON line of per-kernel results (the fused Adam kernel's launches by phase group,
 graph replays counted and a sharded rank's added: above 0 on every path that trains, 0 on
-the serving phases 4 to 7 and the timers' phase 21), the card's line, and as the last line
+the serving phases 4 to 7 and the timers' phase 21; the CIN's above 0 on phase 26 alone, the
+one path that runs xDeepFM), the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX.
@@ -173,13 +182,20 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25))
+                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25), (26, 26))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
 REQUEST_SIZES = (BATCH, BATCH, BATCH, 1, 1000)
 TOL = 1e-4   # fp32: float32 sums in another order; int8: epilogue rounding
 BENCH_CONFIGS = Path(__file__).resolve().parent / "port_bench" / "configs"
+BENCH_TRAFFIC = Path(__file__).resolve().parent / "port_bench" / "traffic"
+FP32_FLOP_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
+# phase 26: the kernels against the plain version, of the largest value of a result. Both
+# sum the same float32 products in other orders (7,800 terms a value at the cell's layers 2
+# and 3), which parts them by a few units in the last place of the terms' magnitudes.
+CIN_TOL = 1e-5
+CIN_RAGGED = ((11, 7, 203, 161), (5, 5, 7, 83), (200, 39, 200, 4001))   # (H_{k-1}, m, H_k, rows)
 
 
 def phase(n: int, msg: str) -> None:
@@ -3441,6 +3457,147 @@ def refresh_phase(args, card: str) -> dict:
             "launches_per_refresh": launches}
 
 
+def cin_phase(args, card: str) -> dict:
+    """Phase 26: xDeepFM's CIN layer kernels at the cell's shapes and at ragged ones
+    against the plain version, two runs bit-equal, their device time (a CUDA graph of
+    20 calls, median of 10) beside the bound, the plain version and cuBLAS's
+    ``z @ W^T``; then the cell's training step through ``make_train_step``: launches a
+    replay, peak memory, ms a step and its top device operations. Returns the
+    kernels line's entries."""
+    from port_bench import generator, program, xdeepfm
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.ops.cuda import cin as cin_ops
+    from xsdeepfwfm_deprecated_torch.train.trainer import make_optimizer, make_train_step
+
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    conf = json.loads((BENCH_CONFIGS / "xdeepfm_criteo.json").read_text())
+    traffic = json.loads((BENCH_TRAFFIC / "train_xdeepfm_b4096.json").read_text())
+    m, maps, b = conf["field_size"], list(conf["cin_layers"]), traffic["batch"]
+    rows = b * conf["embedding_size"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 26)
+
+    def operands(hp, fields, h, n, first=False):
+        x0t = torch.randn((fields, n), generator=gen, device=dev) * 0.5
+        xk1t = x0t if first else torch.randn((hp, n), generator=gen, device=dev)
+        w = torch.randn((h, hp * fields), generator=gen, device=dev) * (2.0 / (hp * fields + h)) ** 0.5
+        g = torch.randn((h, n), generator=gen, device=dev)
+        return xk1t, x0t, w, g
+
+    def both(xk1t, x0t, w, g):
+        """(kernel, plain): each the output and the three gradients, as layer k sees them."""
+        kernel = (cin_ops._forward(xk1t, x0t, w), *cin_ops._grads(g, xk1t, x0t, w))
+        plain = (cin_ops.cin_layer_reference(xk1t, x0t, w),
+                 *cin_ops.cin_layer_grads_reference(g, xk1t, x0t, w))
+        return kernel, plain
+
+    def gap(got, want) -> float:
+        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    cell = [(m, m, maps[0], rows, True), (maps[0], m, maps[1], rows, False)]
+    worst = {}
+    for hp, fields, h, n, first in cell + [(*s, False) for s in CIN_RAGGED]:
+        ops = operands(hp, fields, h, n, first)
+        kernel, plain = both(*ops)
+        torch.cuda.synchronize()
+        gaps = [gap(a, p) for a, p in zip(kernel, plain)]
+        key = f"{hp}x{fields}->{h} rows {n}" + (" (layer 1)" if first else "")
+        worst[key] = max(gaps)
+        check(max(gaps) <= CIN_TOL, f"CIN {key}: the kernels part from the plain version by "
+                                    f"{gaps} (output, dX^(k-1), dX0, dW) of the largest value")
+        if (hp, h, n) == (maps[0], maps[1], rows):
+            again = both(*ops)[0]
+            same = all(torch.equal(a, c) for a, c in zip(kernel, again))
+            check(same, "CIN: two runs of the kernels differ")
+        del ops, kernel, plain
+    phase(26, f"CIN layer kernels against the plain version: worst gap (of the largest value, "
+              f"output and three gradients) " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; at most {CIN_TOL}; two runs bit-equal: {same} {where}")
+
+    times = {}
+    for hp, fields, h, n, first in cell:
+        xk1t, x0t, w, g = operands(hp, fields, h, n, first)
+        flop = 2.0 * n * hp * fields * h
+        z = (xk1t.T.unsqueeze(-1) * x0t.T.unsqueeze(-2)).reshape(n, -1)
+        t = {"forward_ms": graph_ms(lambda: cin_ops._forward(xk1t, x0t, w)),
+             "backward_ms": graph_ms(lambda: cin_ops._grads(g, xk1t, x0t, w)),
+             "plain_forward_ms": graph_ms(lambda: cin_ops.cin_layer_reference(xk1t, x0t, w)),
+             "plain_backward_ms": graph_ms(
+                 lambda: cin_ops.cin_layer_grads_reference(g, xk1t, x0t, w)),
+             "library_ms": graph_ms(lambda: z @ w.T),
+             "bound_forward_ms": flop / FP32_FLOP_PER_S * 1e3,
+             "bound_backward_ms": 2 * flop / FP32_FLOP_PER_S * 1e3}
+        times["layer 1" if first else "layers 2, 3"] = t
+        print(f"  CIN {hp}x{fields}->{h} at {n:,} rows: forward {t['forward_ms']:.4f} ms (bound "
+              f"{t['bound_forward_ms']:.4f}, {100 * t['bound_forward_ms'] / t['forward_ms']:.1f}% "
+              f"of the fp32 peak) | backward {t['backward_ms']:.4f} ms (bound "
+              f"{t['bound_backward_ms']:.4f}, "
+              f"{100 * t['bound_backward_ms'] / t['backward_ms']:.1f}%) | plain {t['plain_forward_ms']:.4f} "
+              f"and {t['plain_backward_ms']:.4f} ms | cuBLAS z @ W^T {t['library_ms']:.4f} ms "
+              f"(yardstick) {where}")
+        del xk1t, x0t, w, g, z
+        torch.cuda.empty_cache()
+    whole = {k: times["layer 1"][k] + (len(maps) - 1) * times["layers 2, 3"][k]
+             for k in times["layer 1"]}
+    print(f"  the cell's CIN ({len(maps)} layers): forward {whole['forward_ms']:.4f} ms, backward "
+          f"{whole['backward_ms']:.4f} ms, bound {whole['bound_forward_ms']:.4f} and "
+          f"{whole['bound_backward_ms']:.4f} ms, plain {whole['plain_forward_ms']:.4f} and "
+          f"{whole['plain_backward_ms']:.4f} ms, cuBLAS forward GEMMs {whole['library_ms']:.4f} ms "
+          f"{where}")
+
+    # the cell's training step: make_train_step's replays, at the cell's weights and rows
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    mcfg, tcfg = xdeepfm.model_config(conf), xdeepfm.train_config(conf, traffic)
+    params = program.params(mcfg, xdeepfm.make(conf, args.seed, dev))
+    optimizer = make_optimizer(tcfg)
+    opt_state = optimizer.init(params)
+    step = make_train_step(mcfg, tcfg, optimizer)
+    xi, xv, y = generator.sample_rows(conf, traffic, 8 * b, args.seed, dev)
+    batches = list(batching.prefetch_to_device(batching.iter_batches(xi, xv, y, b), dev))
+    drop = torch.Generator(device=dev).manual_seed(args.seed)
+    losses = [step(params, opt_state, batches[0], drop)]          # the capture
+    per_step = []
+    for batch in batches[1:]:
+        before = cin_ops.cin.launches
+        losses.append(step(params, opt_state, batch, drop))
+        per_step.append(cin_ops.cin.launches - before)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    layer_shapes = list(zip([m] + maps[:-1], maps))
+    want = len(maps) + sum(
+        2 + (cin_ops.slices(-(-hp * m // cin_ops.ROWS) * -(-h // cin_ops.COLS), rows,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1)
+        for hp, h in layer_shapes)
+    check(per_step == [want] * len(per_step), f"CIN launches a train step {per_step}, not {want}")
+    z_bytes = 4 * rows * maps[0] * m
+    check(peak < z_bytes, f"the train step's peak memory {peak} B is not below one "
+                          f"(B*D, H*m) product, {z_bytes} B")
+    check(all(bool(torch.isfinite(l)) for l in losses), "a non-finite loss")
+    i = [0]
+
+    def one():
+        i[0] = (i[0] + 1) % len(batches)
+        step(params, opt_state, batches[i[0]], drop)
+    step_ms = cuda_ms(one, 20, warmup=3)
+    _, busy_ms, top = profile_top(one, calls=10)
+    print(f"  xDeepFM train step at B={b} through make_train_step: {per_step[0]} CIN launches a "
+          f"replay ({len(per_step)} replays), peak memory {peak:,} B from the weights up (one "
+          f"(B*D, H*m) product: {z_bytes:,} B), {step_ms:.3f} ms a step between events, "
+          f"{1e3 * b / step_ms:,.0f} examples/s, {busy_ms:.3f} ms busy {where}")
+    for key, ms, count in top:
+        print(f"    {ms:8.4f} ms  x{count:g}  {key}")
+    del params, opt_state, step, batches
+    torch.cuda.empty_cache()
+    return {"device_ms_by_layer": {k: {n: round(v, 4) for n, v in t.items()}
+                                   for k, t in times.items()},
+            "device_ms_cell": {n: round(v, 4) for n, v in whole.items()},
+            "worst_gap": max(worst.values()), "launches_per_train_step": per_step[0],
+            "train_step_ms": round(step_ms, 3), "train_step_peak_bytes": peak}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -3668,7 +3825,7 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25), without the result "
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26), without the result "
                     "lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
@@ -3732,6 +3889,8 @@ def main(argv=None) -> int:
             optimizer_phase(args, card)
         if 25 in groups:
             refresh_phase(args, card)
+        if 26 in groups:
+            cin_phase(args, card)
         print(card)
         return 0
     if args.parity:
@@ -3742,13 +3901,18 @@ def main(argv=None) -> int:
     # each phase group's fused Adam and prune_search launches, a rank's included: the
     # kernels line's. A path that trains must launch fused Adam, one that refreshes the
     # pruning prune_search, and every other path neither.
+    from xsdeepfwfm_deprecated_torch.ops.cuda.cin import cin
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
     from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
-    adam, prune = {}, {}
+    adam, prune, cins = {}, {}, {}
 
-    def counting_adam(path: str, trains: bool, prunes: bool, run, *run_args) -> dict:
-        fused_adam.launches = prune_search.launches = 0
+    def counting_adam(path: str, trains: bool, prunes: bool, run, *run_args,
+                      xdeepfm: bool = False) -> dict:
+        fused_adam.launches = prune_search.launches = cin.launches = 0
         out = run(*run_args) or {}
+        check(cin.launches > 0 if xdeepfm else cin.launches == 0,
+              f"the {path} path made {cin.launches} CIN launches")
+        cins[f"launches_{path}_path"] = cin.launches
         n = fused_adam.launches + out.pop("rank_adam_launches", 0)
         check(n > 0 if trains else n == 0, f"the {path} path made {n} fused Adam launches")
         adam[f"launches_{path}_path"] = n
@@ -3786,15 +3950,18 @@ def main(argv=None) -> int:
 
     # ---- 23. the last compiled forms: the hash-MLP baseline's fit, graphed against eager
     counting_adam("hash_mlp", True, False, last_forms_phase, args, cfg, card)
-    for name, counts in (("fused Adam", adam), ("prune_search", prune)):
-        print(f"  {name} launches by path (graph replays counted): "
-              + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in counts.items()))
 
     # ---- 24. the fused Adam kernel alone, beside its bound
     optimized = optimizer_phase(args, card)
 
     # ---- 25. the prune refresh alone, beside its bound
     refreshed = refresh_phase(args, card)
+
+    # ---- 26. the CIN's layer kernels and the xDeepFM cell's train step
+    cin_out = counting_adam("xdeepfm", True, False, cin_phase, args, card, xdeepfm=True)
+    for name, counts in (("fused Adam", adam), ("prune_search", prune), ("cin", cins)):
+        print(f"  {name} launches by path (graph replays counted): "
+              + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in counts.items()))
 
     # ---- result lines
     kernels = [{
@@ -3808,7 +3975,9 @@ def main(argv=None) -> int:
          **adam, **optimized},
         {"name": "prune_search", "route": "cuda",
          "source": "xsdeepfwfm_deprecated_torch/csrc/prune_search.cu", "replaces": None,
-         **prune, **refreshed}]
+         **prune, **refreshed},
+        {"name": "cin", "route": "cuda", "source": "xsdeepfwfm_deprecated_torch/csrc/cin.cu",
+         "replaces": None, **cins, **cin_out}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -252,6 +252,7 @@ def test_tracing_on_captures_a_second_variant_and_off_goes_back_to_the_first(mon
 
 
 def test_counters_read_the_launches_and_a_log():
+    from xsdeepfwfm_deprecated_torch.ops.cuda.cin import cin
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
     from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
     from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
@@ -259,7 +260,8 @@ def test_counters_read_the_launches_and_a_log():
     int8_mlp.launches = 5
     out = P.counters(traffic=cuda_graph.Log(traffic))
     assert out["launches"]["int8_mlp"] == 5 and out["extra"] == {"traffic": 3}
-    assert sorted(out["launches"]) == ["fused_adam", "int8_mlp", "prune_search"]
+    assert sorted(out["launches"]) == ["cin", "fused_adam", "int8_mlp", "prune_search"]
+    assert out["launches"]["cin"] == cin.launches
     assert out["launches"]["fused_adam"] == fused_adam.launches
     assert out["launches"]["prune_search"] == prune_search.launches
     assert "extra" not in P.counters() and isinstance(P.counters()["captures"], dict)

@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 
 from ..utils import profiling as prof
+from .cuda.cin import cin as cin_layer
 
 
 def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
@@ -61,14 +62,14 @@ def cin_forward(x0: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tens
 
     ``X^k[h, d] = Σ_{i,j} W^k[h, i·m + j] · X^{k-1}[i, d] · X⁰[j, d]``, with no
     bias and no activation; every map goes to the output and to the next
-    layer. A layer is one GEMM with M = B·D: its outer products laid out as
-    (B·D, H_{k-1}·m) times W_kᵀ. Each layer is a span ``CIN - Layer {k}``."""
+    layer. Over the rows r = (b, d) a layer is :func:`.cuda.cin.cin`, which
+    holds the maps feature-major, (H_k, B·D), and on the card never forms the
+    (B·D, H_{k-1}·m) outer product. Each layer is a span ``CIN - Layer {k}``."""
     b, m, d = x0.shape
-    x0t = x0.transpose(1, 2)                                     # (B, D, m)
+    x0t = x0.permute(1, 0, 2).reshape(m, b * d)                  # X⁰ᵀ (m, B·D)
     h, pooled = x0t, []
     for k, w in enumerate(weights, start=1):
         with prof.named_scope(f"CIN - Layer {k}"):
-            z = (h.unsqueeze(-1) * x0t.unsqueeze(-2)).reshape(b * d, -1)   # (B·D, H·m)
-            h = (z @ w.T).reshape(b, d, -1)                      # X^k as (B, D, H_k)
-            pooled.append(h.sum(dim=1))
+            h = cin_layer(h, x0t, w)                             # X^kᵀ (H_k, B·D)
+            pooled.append(h.view(-1, b, d).sum(dim=2).T)         # (B, H_k)
     return torch.cat(pooled, dim=1)
