@@ -190,7 +190,13 @@ def prune_params_(params: Dict, adaptive_sparse: Target, *,
 
     ``structured_deep`` prunes whole hidden units by the L2 norm of their
     weight column, on the same schedule, and zeroes the unit's bias with it,
-    so that compaction can shrink the tower into a smaller dense one."""
+    so that compaction can shrink the tower into a smaller dense one.
+
+    DLRM-DCNv2's parameters (a ``bags`` group) are refused: the refresh
+    prunes one-hot tables, R and the tower, which it lacks."""
+    if "bags" in params:
+        raise ValueError("the prune refresh does not take use_dlrm: DeepLight prunes one-hot "
+                         "tables, FwFM's R and the tower, which DLRM-DCNv2 lacks")
     adaptive = _as_scalar(adaptive_sparse, _tree.leaves(params)[0])
     searches: List[Search] = []
 

@@ -99,10 +99,14 @@ def convert(params: Dict, cfg: ModelConfig, mode: str = "dynamic",
             act_scales: Optional[Dict] = None,
             quantize_embeddings: bool = True) -> QuantizedModel:
     """fp32 params → :class:`QuantizedModel`, on the params' device. A
-    model with ``use_cin`` is refused: the int8 forward has no CIN."""
+    model with ``use_cin`` or ``use_dlrm`` is refused: the int8 forward has
+    no CIN, no bags and no cross network."""
     if cfg.use_cin:
         raise ValueError(f"int8 {mode} conversion does not take use_cin: the quantized "
                          "forward has no CIN; serve xDeepFM in fp32")
+    if cfg.use_dlrm:
+        raise ValueError(f"int8 {mode} conversion does not take use_dlrm: the quantized "
+                         "forward has no bags and no cross network; serve DLRM-DCNv2 in fp32")
     params_fp = {k: v for k, v in params.items()
                  if k in ("bias", "lw_w", "fwlw_w", "field_cov")}
     tables = {k: params.get(k) for k in ("emb1", "emb2", "ffm1", "ffm2")}

@@ -12,11 +12,15 @@ results of K = 1. Flags that only choose a TPU layout (``-table_layout``,
 ``-mesh_data``/``-mesh_model``/``-exchange`` shard a fit over ranks started
 by ``torchrun`` (``parallel/mesh.py``).
 
-One model is the port's own, beside the JAX package's families: xDeepFM
+Two models are the port's own, beside the JAX package's families: xDeepFM
 (``use_cin``, ``-use_cin 1 -cin_layers 200,200,200``; Lian et al., KDD 2018),
 its Compressed Interaction Network over the second-order embeddings with a
-first-order linear part and a bias, with or without the deep tower. Its
-fields and flags are the only ones the JAX package lacks.
+first-order linear part and a bias, with or without the deep tower; and
+DLRM-DCNv2 (``use_dlrm``, MLPerf's recommendation model: multi-hot bags of
+``bag_sizes`` ids a categorical field, a dense arch for the numeric fields, a
+low-rank cross network and an over arch; ``-use_dlrm 1 -use_fwfm 0 -use_deep 0
+-optimizer_type adag -l2 0``). Their fields and flags, with
+``-optimizer_type``, are the only ones the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -35,6 +39,13 @@ class ModelConfig:
     stands alone. ``use_cin`` (xDeepFM, or the CIN alone without
     ``use_deep``) takes none of the four: its logit is a bias, a first-order
     linear part (``emb1``) and the CIN's ``cin_layers`` feature maps.
+    ``use_dlrm`` (DLRM-DCNv2) takes none of them and no tower: each
+    categorical field is a bag of ``bag_sizes[f]`` ids summed into one
+    ``embedding_size`` row, the ``numerical`` values feed the dense arch
+    (``dense_arch_layers``, ReLU after each, ending at ``embedding_size``), the
+    dense output and the bags are crossed by ``dcn_num_layers`` low-rank layers
+    of rank ``dcn_low_rank_dim``, and the over arch (``over_arch_layers``,
+    ReLU after each but the last, which is 1) gives the logit.
     """
 
     field_size: int
@@ -51,6 +62,12 @@ class ModelConfig:
     use_fwlw: bool = False   # FwFM linear weights from the 2nd-order embeddings
     use_cin: bool = False    # xDeepFM's Compressed Interaction Network
     cin_layers: Tuple[int, ...] = ()   # feature maps of each CIN layer, H_1..H_L
+    use_dlrm: bool = False   # DLRM-DCNv2: multi-hot bags, dense arch, low-rank cross, over arch
+    bag_sizes: Tuple[int, ...] = ()          # ids a categorical field's bag holds
+    dense_arch_layers: Tuple[int, ...] = ()  # the dense arch's widths, the last embedding_size
+    dcn_num_layers: int = 0                  # low-rank cross layers
+    dcn_low_rank_dim: int = 0                # their rank
+    over_arch_layers: Tuple[int, ...] = ()   # the over arch's widths, the last 1
 
     h_depth: int = 3
     deep_nodes: int = 400
@@ -78,8 +95,14 @@ class ModelConfig:
         n_shallow = int(self.use_logit) + int(self.use_fm) + int(self.use_ffm) + int(self.use_fwfm)
         if n_shallow > 1:
             raise ValueError("only one of use_logit/use_fm/use_ffm/use_fwfm may be set")
-        if n_shallow == 0 and not (self.use_deep or self.use_cin):
-            raise ValueError("choose at least one of (logit, fm, ffm, fwfm, deep, cin)")
+        if n_shallow == 0 and not (self.use_deep or self.use_cin or self.use_dlrm):
+            raise ValueError("choose at least one of (logit, fm, ffm, fwfm, deep, cin, dlrm)")
+        if self.use_dlrm:
+            self._check_dlrm(n_shallow)
+        elif (self.bag_sizes or self.dense_arch_layers or self.dcn_num_layers
+              or self.dcn_low_rank_dim or self.over_arch_layers):
+            raise ValueError("bag_sizes, the arches and the cross layers are given without "
+                             "use_dlrm")
         if self.use_cin:
             if n_shallow:
                 raise ValueError("use_cin brings its own linear part: set none of "
@@ -100,8 +123,33 @@ class ModelConfig:
         if self.table_dtype not in ("f32", "bf16"):
             raise ValueError(f"invalid table_dtype {self.table_dtype!r}")
 
+    def _check_dlrm(self, n_shallow: int) -> None:
+        if n_shallow or self.use_deep or self.use_cin:
+            raise ValueError("use_dlrm brings its own arches and cross network: set none of "
+                             "use_logit/use_fm/use_ffm/use_fwfm/use_deep/use_cin")
+        if self.quantization_aware:
+            raise ValueError("quantization-aware training does not take use_dlrm: its "
+                             "fake-quant tower has no bags and no cross network")
+        if self.qr_flag or self.table_dtype != "f32":
+            raise ValueError("use_dlrm keeps its bag tables in float32, without QR")
+        if len(self.bag_sizes) != self.num_categorical or min(self.bag_sizes, default=0) < 1:
+            raise ValueError(f"use_dlrm needs a positive bag size for each of the "
+                             f"{self.num_categorical} categorical fields, got {self.bag_sizes!r}")
+        if not self.dense_arch_layers or self.dense_arch_layers[-1] != self.embedding_size:
+            raise ValueError(f"use_dlrm's dense arch must end at embedding_size "
+                             f"{self.embedding_size}, got {self.dense_arch_layers!r}")
+        if not self.over_arch_layers or self.over_arch_layers[-1] != 1:
+            raise ValueError(f"use_dlrm's over arch must end in one logit, got "
+                             f"{self.over_arch_layers!r}")
+        if self.dcn_num_layers < 1 or self.dcn_low_rank_dim < 1:
+            raise ValueError("use_dlrm needs dcn_num_layers and dcn_low_rank_dim of at least 1")
+        if min(self.dense_arch_layers + self.over_arch_layers) < 1:
+            raise ValueError("use_dlrm's arch widths must be positive")
+
     @property
     def model_name(self) -> str:
+        if self.use_dlrm:
+            return "DLRM-DCNv2"
         if self.use_cin:
             return "xDeepFM" if self.use_deep else "CIN"
         if self.use_logit:
@@ -119,6 +167,12 @@ class ModelConfig:
     @property
     def num_categorical(self) -> int:
         return self.field_size - self.numerical
+
+    @property
+    def index_columns(self) -> int:
+        """Columns of a row's ids (``Xi``): one a categorical field, or each
+        field's bag of ids in turn under ``use_dlrm``."""
+        return sum(self.bag_sizes) if self.use_dlrm else self.num_categorical
 
     @property
     def use_shallow(self) -> bool:
@@ -288,6 +342,22 @@ def get_parser() -> argparse.ArgumentParser:
                         "set -use_fwfm 0 and the other shallow terms off")
     p.add_argument("-cin_layers", default="200,200,200", type=str,
                    help="Feature maps of each CIN layer, comma-separated (with -use_cin 1)")
+    p.add_argument("-use_dlrm", default=0, type=int,
+                   help="DLRM-DCNv2: multi-hot bags, dense arch, low-rank cross network and "
+                        "over arch; set -use_fwfm 0 -use_deep 0 and train with "
+                        "-optimizer_type adag -l2 0")
+    p.add_argument("-bag_sizes", default="", type=str,
+                   help="Ids a categorical field's bag holds, comma-separated, one a field "
+                        "(with -use_dlrm 1; empty: one each)")
+    p.add_argument("-dense_arch_layers", default="512,256,128", type=str,
+                   help="The dense arch's widths, comma-separated, the last -embedding_size")
+    p.add_argument("-dcn_num_layers", default=3, type=int, help="Low-rank cross layers")
+    p.add_argument("-dcn_low_rank_dim", default=512, type=int, help="The cross layers' rank")
+    p.add_argument("-over_arch_layers", default="1024,1024,512,256,1", type=str,
+                   help="The over arch's widths, comma-separated, the last 1")
+    p.add_argument("-optimizer_type", default="adam", type=str,
+                   choices=["adam", "rmsp", "adag", "sgd"],
+                   help="The optimizer (DLRM-DCNv2's bags train with adag only)")
     return p
 
 
@@ -297,6 +367,22 @@ def _cin_layers(pars) -> Tuple[int, ...]:
     if not getattr(pars, "use_cin", 0):
         return ()
     return tuple(int(h) for h in pars.cin_layers.split(","))
+
+
+def _widths(text: str) -> Tuple[int, ...]:
+    return tuple(int(h) for h in text.split(",") if h.strip())
+
+
+def _dlrm_keys(pars, field_size: int) -> dict:
+    """DLRM-DCNv2's ``ModelConfig`` fields where ``-use_dlrm`` is set, else
+    none. ``-bag_sizes`` left empty gives every field a bag of one id."""
+    if not getattr(pars, "use_dlrm", 0):
+        return {}
+    bags = _widths(pars.bag_sizes) or (1,) * (field_size - pars.numerical)
+    return dict(use_dlrm=True, bag_sizes=bags,
+                dense_arch_layers=_widths(pars.dense_arch_layers),
+                dcn_num_layers=pars.dcn_num_layers, dcn_low_rank_dim=pars.dcn_low_rank_dim,
+                over_arch_layers=_widths(pars.over_arch_layers))
 
 
 def configs_from_args(pars, field_size: int, feature_sizes) -> Tuple[ModelConfig, TrainConfig]:
@@ -326,11 +412,13 @@ def configs_from_args(pars, field_size: int, feature_sizes) -> Tuple[ModelConfig
         static_quantization=bool(pars.static_quantization),
         dynamic_quantization=bool(pars.dynamic_quantization),
         table_dtype=getattr(pars, "table_dtype", "f32"),
+        **_dlrm_keys(pars, field_size),
     )
     tcfg = TrainConfig(
         n_epochs=pars.n_epochs,
         batch_size=pars.batch_size,
         learning_rate=pars.learning_rate,
+        optimizer_type=getattr(pars, "optimizer_type", "adam"),
         momentum=pars.momentum,
         weight_decay=pars.l2,
         random_seed=pars.random_seed,

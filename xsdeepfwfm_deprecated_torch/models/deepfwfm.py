@@ -52,6 +52,9 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     drawn on the CPU from ``generator`` and then moved, so one seed gives the
     same parameters on every device. ``device="meta"`` gives a template of
     shapes and dtypes (no generator needed)."""
+    if cfg.use_dlrm:
+        raise ValueError("DLRM-DCNv2 (use_dlrm) is models.dlrm's, trained by "
+                         "train.trainer.DLRMEstimator (models.factory.get_model picks it)")
     device = resolve_device(device)
     spec = make_embedding_spec(cfg)
     f, e = cfg.field_size, cfg.embedding_size

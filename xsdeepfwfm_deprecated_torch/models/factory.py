@@ -15,10 +15,10 @@ def get_model(field_size: int, feature_sizes: Sequence[int], pars=None, logger=N
               train_cfg: Optional[TrainConfig] = None,
               dynamic_quantization: bool = False, static_quantization: bool = False,
               quantization_aware: bool = False, device: DeviceLike = None, **_compat):
-    """Build a :class:`DeepFMEstimator` from CLI flags (``pars``) or explicit
-    configs. The single flags→constructor mapping of the framework.
+    """Build a :class:`DeepFMEstimator` (a ``DLRMEstimator`` for
+    ``use_dlrm``) from CLI flags (``pars``) or explicit configs. The single flags→constructor mapping of the framework.
     ``device=None`` means the CUDA device."""
-    from ..train.trainer import DeepFMEstimator  # local import: avoids model↔train cycle
+    from ..train.trainer import DeepFMEstimator, DLRMEstimator  # local: avoids model↔train cycle
     if model_cfg is None or train_cfg is None:
         assert pars is not None, "need either pars or explicit configs"
         model_cfg, train_cfg = configs_from_args(pars, field_size, feature_sizes)
@@ -27,4 +27,5 @@ def get_model(field_size: int, feature_sizes: Sequence[int], pars=None, logger=N
             model_cfg, dynamic_quantization=dynamic_quantization,
             static_quantization=static_quantization,
             quantization_aware=quantization_aware)
-    return DeepFMEstimator(model_cfg, train_cfg, logger=logger, device=device)
+    cls = DLRMEstimator if model_cfg.use_dlrm else DeepFMEstimator
+    return cls(model_cfg, train_cfg, logger=logger, device=device)

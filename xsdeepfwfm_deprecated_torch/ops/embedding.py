@@ -9,6 +9,15 @@ fields read packed quotient and remainder tables instead of the dense one.
 The training lookup has its own backward (:class:`_FieldGather`); the
 serving lookup is forward-only.
 
+DLRM-DCNv2's multi-hot bags (:class:`BagSpec`, :func:`bag_lookup`) are the
+same packed table over its categorical fields alone, each field a bag of a
+fixed number of ids whose rows are summed. In a training step the lookup
+records its ids and hands autograd a leaf of its own for the pooled bags
+(:func:`recording_bags`), so that the backward gives the update the bags'
+gradient (:class:`BagGrad`) and nothing the size of the table;
+:func:`bag_adagrad_` then sums the gradients of equal ids and steps Adagrad
+on the batch's distinct rows alone, in fixed sizes and with no host sync.
+
 Not ported, because they are TPU gather workarounds that leave the result
 unchanged: the routed and windowed gathers (``:161-339``) and the grouped
 serving layout (``:487-560``). Every lookup here is one flat ``index_select``.
@@ -17,10 +26,13 @@ Out-of-range indices resolve to their field's last row, as in JAX.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+import contextlib
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..device import constant, scaled_normal
 
@@ -247,3 +259,162 @@ def packed_lookup_serving(tables: Dict[str, torch.Tensor], spec: PackedEmbedding
 
 def table_param_count(tables: Dict[str, torch.Tensor]) -> int:
     return int(sum(t.numel() for t in tables.values()))
+
+
+# ------------------------------------------------- DLRM-DCNv2's multi-hot bags
+
+@dataclass(frozen=True)
+class BagSpec:
+    """Static layout of the bags: field f holds ``bag_sizes[f]`` consecutive
+    columns of a row's ids and ``feature_sizes[f]`` packed rows from
+    ``offsets[f]``."""
+
+    feature_sizes: Tuple[int, ...]
+    bag_sizes: Tuple[int, ...]
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        out, at = [], 0
+        for n in self.feature_sizes:
+            out.append(at)
+            at += n
+        return tuple(out)
+
+    @property
+    def rows(self) -> int:
+        return sum(self.feature_sizes)
+
+    @property
+    def columns(self) -> int:
+        return sum(self.bag_sizes)
+
+    @property
+    def starts(self) -> Tuple[int, ...]:
+        """Each field's first column."""
+        return tuple(sum(self.bag_sizes[:f]) for f in range(len(self.bag_sizes)))
+
+    @property
+    def column_field(self) -> Tuple[int, ...]:
+        return tuple(f for f, k in enumerate(self.bag_sizes) for _ in range(k))
+
+
+def bag_spec(feature_sizes: Sequence[int], numerical: int,
+             bag_sizes: Sequence[int]) -> BagSpec:
+    """The bags of the categorical fields (the ``numerical`` leading fields
+    have no rows)."""
+    return BagSpec(tuple(int(n) for n in feature_sizes[numerical:]),
+                   tuple(int(k) for k in bag_sizes))
+
+
+def bag_rows(spec: BagSpec, xi: torch.Tensor, table_rows: int) -> torch.Tensor:
+    """(B, columns) ids → their packed rows, int64: each id clipped into its
+    field's rows, then clipped to the table's (a warm-up reads a one-row
+    stand-in of the table, ``train.trainer``)."""
+    col = spec.column_field
+    sizes = tuple(spec.feature_sizes[f] for f in col)
+    offs = constant(tuple(spec.offsets[f] for f in col), torch.long, xi.device)
+    return (_clip_per_field(xi.long(), sizes) + offs).clamp(0, table_rows - 1)
+
+
+@dataclass
+class BagRecord:
+    """One pooled lookup of a training forward: the table it read, its rows
+    (B, columns) and the pooled bags (B, fields, E), a leaf of autograd's."""
+    table: torch.Tensor
+    rows: torch.Tensor
+    pooled: torch.Tensor
+    spec: BagSpec
+
+
+@dataclass
+class BagTape:
+    records: List[BagRecord] = field(default_factory=list)
+
+
+_TAPE = threading.local()
+
+
+@contextlib.contextmanager
+def recording_bags() -> Iterator[BagTape]:
+    """Record the pooled lookups of the forward run inside: each returns a
+    leaf of autograd's for its bags, cut from the table, so that the
+    gradient stops there (``train.trainer.loss_and_grads``)."""
+    prev, _TAPE.tape = getattr(_TAPE, "tape", None), BagTape()
+    try:
+        yield _TAPE.tape
+    finally:
+        _TAPE.tape = prev
+
+
+def _row_major(batch: int, stride: int, per_row: Sequence[int],
+               device: torch.device) -> torch.Tensor:
+    """``row * stride + per_row[j]`` for each row in turn and every j, int64,
+    made on the device: at the benchmark's batch these hold millions."""
+    rows = torch.arange(batch, dtype=torch.long, device=device)[:, None] * stride
+    return (rows + constant(tuple(per_row), torch.long, device)[None, :]).reshape(-1)
+
+
+def bag_lookup(table: torch.Tensor, spec: BagSpec, xi: torch.Tensor) -> torch.Tensor:
+    """(B, columns) ids → (B, fields, E): each field's rows summed, one
+    ``embedding_bag`` over every bag. Inside :func:`recording_bags` the
+    result is a leaf of autograd's and the lookup is recorded; elsewhere
+    autograd reaches the table through ``embedding_bag``'s own backward."""
+    b = xi.shape[0]
+    rows = bag_rows(spec, xi, table.shape[0])
+    offsets = _row_major(b, spec.columns, spec.starts, xi.device)   # each (row, field) bag's start
+    tape = getattr(_TAPE, "tape", None)
+    if tape is None:
+        return F.embedding_bag(rows.reshape(-1), table, offsets, mode="sum").view(b, -1,
+                                                                                  table.shape[1])
+    with torch.no_grad():
+        pooled = F.embedding_bag(rows.reshape(-1), table, offsets, mode="sum")
+    pooled = pooled.view(b, -1, table.shape[1]).requires_grad_(True)
+    tape.records.append(BagRecord(table, rows, pooled, spec))
+    return pooled
+
+
+@dataclass
+class BagGrad:
+    """A bag table's gradient as the backward leaves it: the rows each id
+    read (B, columns) and the gradient of each pooled bag (B, fields, E)."""
+    rows: torch.Tensor
+    grad: torch.Tensor
+    spec: BagSpec
+
+
+@torch.no_grad()
+def bag_adagrad_(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: float,
+                 eps: float, count: torch.Tensor) -> None:
+    """Adagrad (``acc += g²``; ``w -= lr·g·rsqrt(acc + eps)`` where acc > 0)
+    on the rows the batch read, in place, the gradients of equal ids summed
+    first: what the dense rule gives, since every other row's gradient is 0.
+
+    Fixed sizes, no host sync: the N = B·columns rows are sorted, each
+    distinct row is a segment, and N slots hold the segments' rows and
+    summed gradients. A slot past the last segment keeps its sorted row with
+    a zero gradient, which adds exactly nothing (and spreads those adds over
+    many rows, where one row would take them all in turn). Each column's
+    gradients are added into their segments straight from the bags', one
+    column a launch, so no (N, E) copy of them is made. ``count`` (int64, on
+    the card) gains the number of distinct rows."""
+    b, fields, e = g.grad.shape
+    ids = g.rows.reshape(-1)
+    n = ids.numel()
+    sorted_ids, perm = torch.sort(ids)
+    new = torch.ones_like(sorted_ids, dtype=torch.bool)
+    new[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(new, 0) - 1                                  # sorted slot → segment
+    seg_of = torch.empty_like(seg).scatter_(0, perm, seg).view(b, -1)   # id → its segment
+    rows = sorted_ids.clone().scatter_(0, seg, sorted_ids)          # segment → its row
+    gsum = torch.zeros((n, e), dtype=g.grad.dtype, device=ids.device)
+    for c, f in enumerate(g.spec.column_field):
+        gsum.index_add_(0, seg_of[:, c], g.grad[:, f])
+    a = acc.index_select(0, rows)
+    sq = gsum * gsum
+    a.add_(sq)                                                      # each row's acc after
+    acc.index_add_(0, rows, sq)
+    del sq
+    live = a > 0
+    upd = a.add_(eps).rsqrt_().mul_(gsum).masked_fill_(~live, 0.0)
+    table.index_add_(0, rows, upd, alpha=-lr)
+    count.add_(seg[-1] + 1)

@@ -1,10 +1,11 @@
-"""Pairwise-interaction ops: FM, FwFM, FFM in contraction form, and xDeepFM's CIN.
+"""Pairwise-interaction ops: FM, FwFM, FFM in contraction form, xDeepFM's CIN
+and DLRM-DCNv2's low-rank cross network.
 
 Port of ``xsdeepfwfm_deprecated_tpu/ops/interactions.py:26-75``. None of the
 pairwise ops materializes the ``(F, F, B, E)`` outer product. Float32 matmuls
 run in full float32 (TF32 off, set by :func:`..device.resolve_device`), as the
-JAX ops' ``precision="highest"``. :func:`cin_forward` is the port's own (the
-JAX package has no CIN).
+JAX ops' ``precision="highest"``. :func:`cin_forward` and :func:`dcn_cross` are
+the port's own (the JAX package has neither).
 """
 
 from __future__ import annotations
@@ -73,3 +74,18 @@ def cin_forward(x0: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tens
             h = cin_layer(h, x0t, w)                             # X^kᵀ (H_k, B·D)
             pooled.append(h.view(-1, b, d).sum(dim=2).T)         # (B, H_k)
     return torch.cat(pooled, dim=1)
+
+
+def dcn_cross(x0: torch.Tensor, layers: Sequence[dict]) -> torch.Tensor:
+    """DCN V2's low-rank cross network (Wang et al., WWW 2021, sec. 3, Eq. 2
+    with W = U·Vᵀ), as DLRM-DCNv2 runs it: (B, D) x₀ and one ``{"v": (r, D),
+    "w": (D, r), "b": (D,)}`` a layer → x_L (B, D), where
+
+        x_{l+1} = x₀ ⊙ (W_l (V_l x_l) + b_l) + x_l.
+
+    Two GEMMs a layer, in float32; each layer is a span ``DCN - Layer {k}``."""
+    x = x0
+    for k, layer in enumerate(layers, start=1):
+        with prof.named_scope(f"DCN - Layer {k}"):
+            x = torch.addcmul(x, x0, torch.addmm(layer["b"], x @ layer["v"].T, layer["w"].T))
+    return x

@@ -154,7 +154,7 @@ def run_benchmark(predictor: Predictor, Xi, Xv, y, *, batch_size: int = 8192,
                   n_single: int = 1000) -> Dict[str, float]:
     """Full benchmark; returns a dict of every measured number."""
     log = (logger.info if logger is not None else print)
-    Xi = np.asarray(Xi, np.int32).reshape(-1, predictor.cfg.num_categorical)
+    Xi = np.asarray(Xi, np.int32).reshape(-1, predictor.cfg.index_columns)
     Xv = np.asarray(Xv, np.float32)
     y = np.asarray(y, np.float64).ravel()
     n = Xi.shape[0]

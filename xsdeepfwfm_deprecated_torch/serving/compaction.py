@@ -189,6 +189,9 @@ def compact_for_serving(params: Dict, cfg: ModelConfig, int8: bool = False,
     indirection): the tower still compacts, the lookup stays one gather."""
     if cfg.use_cin:
         raise ValueError("compaction does not take use_cin: the compact forward has no CIN")
+    if cfg.use_dlrm:
+        raise ValueError("compaction does not take use_dlrm: the compact forward has no bags "
+                         "and no cross network")
     if cfg.use_ffm:
         raise NotImplementedError(
             "compaction covers the DeepLight families (LR/FM/FwFM/DeepFwFM); "

@@ -17,7 +17,7 @@ waits for the card) and ``request.copy_out`` (the logits to host numpy).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ from .. import _tree
 from ..compression.quantization import QuantizedModel, quantized_forward
 from ..config import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..models import deepfwfm
+from ..models import deepfwfm, dlrm
 from ..ops.embedding import packed_lookup_serving
 from ..utils import cuda_graph, profiling
 from .compaction import CompactModel, compact_forward
@@ -51,7 +51,7 @@ class Predictor:
 
     def __init__(self, model: Union[Dict, QuantizedModel, CompactModel],
                  cfg: Optional[ModelConfig] = None, layout: str = "auto",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, forward_fn: Optional[Callable] = None):
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
         if not isinstance(model, (dict, QuantizedModel, CompactModel)):
@@ -78,8 +78,13 @@ class Predictor:
                 raise ValueError("fp32 params need an explicit ModelConfig")
             self.cfg = cfg
             self._model = _tree.tree_map(lambda t: t.to(self.device), model)
-            self._fn = lambda p, xi, xv: deepfwfm.forward(p, xi, xv, cfg,
-                                                          lookup_fn=packed_lookup_serving)
+            if forward_fn is None and cfg.use_dlrm:
+                forward_fn = dlrm.forward
+            if forward_fn is None:
+                self._fn = lambda p, xi, xv: deepfwfm.forward(p, xi, xv, cfg,
+                                                              lookup_fn=packed_lookup_serving)
+            else:
+                self._fn = lambda p, xi, xv: forward_fn(p, xi, xv, cfg)
         self._graphs = cuda_graph.Compiled(
             self._forward, f"the Predictor's forward of a {type(self._model).__name__}",
             device=self.device)
@@ -120,6 +125,6 @@ class Predictor:
         captures the shape's graph (and builds the kernels), as the JAX
         ``warmup`` compiles for the serving shapes."""
         for b in batch_sizes:
-            self.logits(np.zeros((b, self.cfg.num_categorical), np.int32),
+            self.logits(np.zeros((b, self.cfg.index_columns), np.int32),
                         np.zeros((b, self.cfg.numerical), np.float32))
         return self

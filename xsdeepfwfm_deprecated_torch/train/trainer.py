@@ -82,7 +82,8 @@ from ..compression.quantization import convert
 from ..config import ModelConfig, TrainConfig
 from ..data import batching
 from ..device import DeviceLike, resolve_device
-from ..models import deepfwfm
+from ..models import deepfwfm, dlrm
+from ..ops import embedding as emb_ops
 from ..ops.cuda.fused_adam import fused_adam
 from ..ops.mlp import BatchShard
 from ..parallel import embedding_sharding as es
@@ -93,6 +94,7 @@ from . import checkpoint as ckpt
 from . import metrics as M
 
 _SLOTS = {"adam": ("mu", "nu"), "rmsp": ("nu",), "adag": ("sum_of_squares",)}
+ADAGRAD_EPS = 1e-10
 _TABLE_GROUPS = ("emb1", "emb2", "ffm1", "ffm2")   # the parameter groups that hold table rows
 
 
@@ -107,6 +109,12 @@ class Optimizer:
     gives an exact 0 where the accumulator is 0, both unlike ``torch.optim``.
     Moments take their parameter's dtype. ``update`` changes parameters and
     state in place.
+
+    A bag table's gradient (:class:`..ops.embedding.BagGrad`, DLRM-DCNv2's)
+    takes ``adag`` without weight decay: its gradient is 0 off the batch's
+    rows, where Adagrad's update is exactly 0, so
+    :func:`..ops.embedding.bag_adagrad_` steps the batch's distinct rows
+    alone (a span ``Bags - Update``; the card's count ``bag_rows_updated``).
     """
 
     def __init__(self, tcfg: TrainConfig):
@@ -139,6 +147,20 @@ class Optimizer:
         """One step. ``grads`` are in the order of ``_tree.leaves(params)``."""
         p = _tree.leaves(params)
         slots = self._slots(state)
+        bags = [i for i, g in enumerate(grads) if isinstance(g, emb_ops.BagGrad)]
+        if bags:
+            if self.kind != "adag" or self.wd:
+                raise ValueError(f"a bag table trains with adag and no weight decay (-optimizer_type "
+                                 f"adag -l2 0), got {self.kind} with weight decay {self.wd}: "
+                                 f"only then are its rows off the batch left exactly as they are")
+            acc = _tree.leaves(slots["sum_of_squares"])
+            for i in bags:
+                with profiling.named_scope(profiling.SCOPE_BAGS_UPDATE):
+                    emb_ops.bag_adagrad_(p[i], acc[i], grads[i], self.lr, ADAGRAD_EPS,
+                                         cuda_graph.device_count("bag_rows_updated", p[i].device))
+            rest = [i for i in range(len(p)) if i not in bags]
+            p, grads = [p[i] for i in rest], [grads[i] for i in rest]
+            slots = {"sum_of_squares": [acc[i] for i in rest]}
         if self.kind == "adam":
             b1, b2, eps = 0.9, 0.999, 1e-8
             count = slots["count"].add_(1)
@@ -166,10 +188,9 @@ class Optimizer:
             torch._foreach_reciprocal_(upd)
             torch._foreach_mul_(upd, g)
         elif self.kind == "adag":
-            eps = 1e-10
             acc = _tree.leaves(slots["sum_of_squares"])
             torch._foreach_add_(acc, torch._foreach_mul(g, g))
-            upd = [torch.where(a > 0, torch.rsqrt(a + eps), torch.zeros_like(a)) * x
+            upd = [torch.where(a > 0, torch.rsqrt(a + ADAGRAD_EPS), torch.zeros_like(a)) * x
                    for a, x in zip(acc, g)]
         elif self.momentum:
             trace = _tree.leaves(slots["trace"])
@@ -188,10 +209,15 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
 ForwardFn = Callable[..., torch.Tensor]
 
 
+def _model_forward(mcfg: ModelConfig) -> ForwardFn:
+    """The forward of the configuration's model family, where none is given."""
+    return dlrm.forward if mcfg.use_dlrm else deepfwfm.forward
+
+
 def batch_loss(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig, *,
                generator: Optional[torch.Generator] = None,
                teacher_logits: Optional[torch.Tensor] = None,
-               forward_fn: ForwardFn = deepfwfm.forward,
+               forward_fn: Optional[ForwardFn] = None,
                group: Optional[mesh_mod.BatchGroup] = None) -> torch.Tensor:
     """The train-mode loss of one batch: the masked mean BCE (the per-batch
     ``binary_cross_entropy_with_logits`` mean on an unpadded batch), or the
@@ -200,6 +226,7 @@ def batch_loss(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig, 
     as a 0-d tensor: its masked sum divided by that, so that the ranks'
     losses sum to the global mean; ``group`` (the batch's ranks) is where the
     KD loss takes its softmax."""
+    forward_fn = forward_fn or _model_forward(mcfg)
     logits = forward_fn(params, batch["xi"], batch["xv"], mcfg, train=True, generator=generator)
     y, mask = batch["y"], batch["mask"]
     if teacher_logits is not None:
@@ -211,19 +238,36 @@ def batch_loss(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig, 
 
 
 def loss_and_grads(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConfig,
-                   **loss_kw) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                   **loss_kw) -> Tuple[torch.Tensor, List[Any]]:
     """(loss, one gradient per leaf of ``params`` in ``_tree.leaves`` order).
     A parameter the loss does not reach gets zeros, so that L2 still decays
-    it. ``params`` itself is left without ``requires_grad``."""
+    it. A table that a pooled bag lookup read
+    (:func:`..ops.embedding.recording_bags`) gets a
+    :class:`..ops.embedding.BagGrad`: the backward stops at the pooled bags,
+    and nothing the size of the table is made. ``params`` itself is left
+    without ``requires_grad``."""
     leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
     it = iter(leaves)
     live = _tree.tree_map(lambda _: next(it), params)
-    with profiling.named_scope("step.forward"):
+    with profiling.named_scope("step.forward"), emb_ops.recording_bags() as tape:
         loss = batch_loss(live, batch, mcfg, tcfg, **loss_kw)
+    records = {id(r.table): r for r in tape.records}
+    if len(records) != len(tape.records):
+        raise ValueError("a bag table is looked up once a step")
+    dense = [p for p in leaves if id(p) not in records]
     with profiling.named_scope("step.backward"):
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for p, g in zip(leaves, grads)]
+        got = torch.autograd.grad(loss, dense + [r.pooled for r in records.values()],
+                                  allow_unused=True)
+    by_leaf = dict(zip([id(p) for p in dense] + list(records), got))
+    grads: List[Any] = []
+    for p in leaves:
+        g, r = by_leaf[id(p)], records.get(id(p))
+        if r is None:
+            grads.append(torch.zeros_like(p) if g is None else g)
+        else:
+            grads.append(emb_ops.BagGrad(r.rows, torch.zeros_like(r.pooled) if g is None else g,
+                                         r.spec))
+    return loss.detach(), grads
 
 
 def train_step(params: Dict, opt_state: Any, batch: Dict, mcfg: ModelConfig,
@@ -276,8 +320,12 @@ class _Steps:
                  reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
                  group: Optional[mesh_mod.BatchGroup] = None):
         self.mcfg, self.tcfg, self.optimizer, self.use_kd = mcfg, tcfg, optimizer, use_kd
-        self.forward_fn = forward_fn or deepfwfm.forward
+        self.forward_fn = forward_fn or _model_forward(mcfg)
         self.mesh, self.reduce, self.group = mesh, reduce, group
+        # a warm-up takes a bag table and its accumulator as one row: a step reads and
+        # writes them at its batch's rows alone (utils.cuda_graph.Compiled)
+        self.compiled_kw = dict(writes_state=True, **_collectives(mesh),
+                                row_state=dlrm.is_bag_state if mcfg.use_dlrm else None)
 
     def _step(self, params: Dict, opt_state: Any, generator, **batch) -> torch.Tensor:
         return train_step(params, opt_state, batch, self.mcfg, self.tcfg, self.optimizer,
@@ -305,7 +353,7 @@ class TrainStep(_Steps):
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self._graphs = cuda_graph.Compiled(self._step, _graph_name(self.name, self.forward_fn),
-                                           writes_state=True, **_collectives(self.mesh))
+                                           **self.compiled_kw)
 
     def __call__(self, params: Dict, opt_state: Any, batch: Dict[str, torch.Tensor],
                  generator: Any = None) -> torch.Tensor:
@@ -377,7 +425,7 @@ class MultiStep(_Steps):
         super().__init__(*args, **kw)
         self.prune_kw = prune_kw
         self._graphs = cuda_graph.Compiled(self._steps, _graph_name(self.name, self.forward_fn),
-                                           writes_state=True, **_collectives(self.mesh))
+                                           **self.compiled_kw)
 
     def _steps(self, params: Dict, opt_state: Any, generator, live: Tuple[bool, ...],
                **k_in: torch.Tensor) -> torch.Tensor:
@@ -479,7 +527,7 @@ class _Eval:
     def __init__(self, mcfg: ModelConfig, forward_fn: Optional[ForwardFn] = None, *,
                  mesh: Optional[mesh_mod.Mesh] = None, axes: Optional[mesh_mod.Axes] = None):
         self.mcfg = mcfg
-        self.forward_fn = forward_fn or deepfwfm.forward
+        self.forward_fn = forward_fn or _model_forward(mcfg)
         self.mesh, self.axes = mesh, axes
         self._graphs = cuda_graph.Compiled(self._forwards, _graph_name(self.name, self.forward_fn),
                                            **_collectives(mesh))
@@ -550,6 +598,9 @@ class DeepFMEstimator:
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, logger=None,
                  device: DeviceLike = None):
+        if model_cfg.use_dlrm != (type(self).model_forward is dlrm.forward):
+            raise ValueError("DLRM-DCNv2 (use_dlrm) trains through DLRMEstimator, and only it "
+                             "(models.factory.get_model picks it)")
         self.mcfg = model_cfg
         self.tcfg = train_cfg
         self.device = resolve_device(device)
@@ -605,13 +656,18 @@ class DeepFMEstimator:
         TrainConfig (``-mesh_data``/``-mesh_model``/``-exchange``); None for
         1x1. Raises a ``ValueError`` that says how to launch when the process
         group is missing or has another number of ranks, and one for a model
-        with ``use_cin``, whose sharded forward has no CIN."""
+        with ``use_cin`` or ``use_dlrm``, whose sharded forward has no CIN, no
+        bags and no cross network."""
         tc = self.tcfg
         if tc.mesh_data == 1 and tc.mesh_model == 1:
             self._leave_mesh()
             return None
         if self.mcfg.use_cin:
             raise ValueError("a sharded fit does not take use_cin: train xDeepFM on one device "
+                             "(-mesh_data 1 -mesh_model 1)")
+        if self.mcfg.use_dlrm:
+            raise ValueError("a sharded fit does not take use_dlrm: its exchanges shard one-hot "
+                             "tables, not DLRM-DCNv2's bags; train it on one device "
                              "(-mesh_data 1 -mesh_model 1)")
         data = None if tc.mesh_data == 0 else tc.mesh_data
         mesh = self.mesh
@@ -800,12 +856,12 @@ class DeepFMEstimator:
             prune_r=(tc.prune_r if prune_r is None else bool(prune_r)) and self.mcfg.use_fwfm,
             structured_deep=tc.prune_deep_structured)
 
-        Xi_train = np.asarray(Xi_train, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
+        Xi_train = np.asarray(Xi_train, dtype=np.int32).reshape(-1, self.mcfg.index_columns)
         Xv_train = np.asarray(Xv_train, dtype=np.float32)
         y_train = np.asarray(y_train, dtype=np.float32).ravel()
         is_valid = Xi_valid is not None and len(Xi_valid) > 0
         if is_valid:
-            Xi_valid = np.asarray(Xi_valid, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
+            Xi_valid = np.asarray(Xi_valid, dtype=np.int32).reshape(-1, self.mcfg.index_columns)
             Xv_valid = np.asarray(Xv_valid, dtype=np.float32)
             y_valid = np.asarray(y_valid, dtype=np.float32).ravel()
 
@@ -1011,7 +1067,7 @@ class DeepFMEstimator:
         bs = batch_size or (self.tcfg.eval_batch_size * (2 if self.mcfg.use_ffm else 1))
         n_shards = self._n_batch_shards()
         bs = -(-bs // n_shards) * n_shards
-        Xi = np.asarray(Xi, dtype=np.int32).reshape(-1, self.mcfg.num_categorical)
+        Xi = np.asarray(Xi, dtype=np.int32).reshape(-1, self.mcfg.index_columns)
         Xv = np.asarray(Xv, dtype=np.float32).reshape(Xi.shape[0], -1)
         axes = self._batch_axes()
         rows = slice(None) if self.mesh is None else mesh_mod.batch_rows(self.mesh, axes, bs)
@@ -1128,6 +1184,31 @@ class DeepFMEstimator:
         self._log(f"\tPruned Parameters: \t{orig['total'] - counts['total']:,}")
         self._log("========")
         return size
+
+
+class DLRMEstimator(DeepFMEstimator):
+    """DLRM-DCNv2 (``use_dlrm``, :mod:`..models.dlrm`) with the estimator's
+    surface: ``fit`` steps its bags' Adagrad on the batch's rows alone, eval
+    and ``predict`` run its forward, ``save`` and ``load`` its leaves. It
+    trains with ``adag`` and no weight decay, on one device, unpruned and
+    without a teacher: ``fit`` refuses the rest, each with a ``ValueError``
+    that says why."""
+
+    model_forward = staticmethod(dlrm.forward)
+    model_init = staticmethod(dlrm.init_params)
+    model_spec = staticmethod(dlrm.make_bag_spec)
+
+    def fit(self, *args, prune: Optional[bool] = None,
+            teacher_model: Optional[DeepFMEstimator] = None, **kw) -> "DLRMEstimator":
+        if (self.tcfg.prune if prune is None else prune):
+            raise ValueError("the prune refresh does not take use_dlrm: DeepLight prunes "
+                             "one-hot tables, FwFM's R and the tower, which DLRM-DCNv2 lacks")
+        if teacher_model is not None:
+            raise ValueError("distillation does not take use_dlrm: train DLRM-DCNv2 on its labels")
+        if self.tcfg.optimizer_type != "adag" or self.tcfg.weight_decay:
+            raise ValueError("DLRM-DCNv2's bags train with adag and no weight decay "
+                             "(-optimizer_type adag -l2 0)")
+        return super().fit(*args, prune=prune, teacher_model=teacher_model, **kw)
 
 
 def _with_teacher(batches, teacher_logits: np.ndarray, batch_size: int):

@@ -24,7 +24,10 @@ alone decides, on every call:
   every rank of a mesh alike, and the ranks capture (with their collectives)
   together;
 * the warm-up: a call that writes state warms up on clones of the state and of
-  its generators;
+  its generators; a leaf that ``row_state`` names (a bag table and its
+  Adagrad accumulator, which a step reads and writes at the rows its inputs
+  name, clipped to the leaf's rows) is cloned as its first row, so that a
+  warm-up of a 13 GB table costs one row;
 * the output: a copy, which the next replay does not overwrite (``load``
   returns the replay itself, whose output the next replay overwrites).
 
@@ -43,7 +46,9 @@ alone decides, on every call:
   kernels (:data:`KERNELS`, which ``ops/cuda`` fills) and, on a mesh, the
   collectives of ``Mesh.traffic``. The warm-up and the capture are set-up,
   like a compile, and leave every counter as they found it; each replay adds
-  what the capture recorded;
+  what the capture recorded. A count kept on the card (:func:`device_count`)
+  is added to by the replay's own kernels; the warm-up's additions are taken
+  back;
 * spans (:mod:`.profiling`): a capture made with tracing on records each
   span opened inside it as a pair of timing events in the graph, and each
   replay's device time per span is read into the program's spans
@@ -134,6 +139,24 @@ class Log(Counter):
 
 
 CAPTURES: List[Tuple[str, int]] = []    # (graph name, perf_counter_ns) of each capture of Compiled
+_ON_CARD: Dict[Tuple[str, str], torch.Tensor] = {}    # (name, device) -> a count kept there
+
+
+def device_count(name: str, device: torch.device) -> torch.Tensor:
+    """The 0-d int64 count ``name`` on ``device``, which the program's kernels
+    add to in place (inside graphs too) and only :func:`device_counts` reads."""
+    key = (name, str(device))
+    if key not in _ON_CARD:
+        _ON_CARD[key] = torch.zeros((), dtype=torch.int64, device=device)
+    return _ON_CARD[key]
+
+
+def device_counts() -> Dict[str, int]:
+    """Each count kept on a device, summed over the devices, read back."""
+    out: Dict[str, int] = {}
+    for (name, _), t in _ON_CARD.items():
+        out[name] = out.get(name, 0) + int(t)
+    return out
 
 
 def _on_card(device: torch.device) -> bool:
@@ -164,6 +187,15 @@ def _clone(leaf: Any) -> Any:
     return clone_generator(leaf) if isinstance(leaf, torch.Generator) else leaf.clone()
 
 
+def _warmup_state(state: Tuple, row_state: Optional[Callable[[str], bool]]) -> Tuple:
+    """Clones of the state for a warm-up; a leaf that ``row_state`` names by
+    its path is cloned as its first row."""
+    if row_state is None:
+        return _tree.tree_map(_clone, state)
+    return _tree.tree_map_with_path(
+        lambda path, leaf: leaf[:1].clone() if row_state(path) else _clone(leaf), state)
+
+
 class Compiled:
     """``fn`` as one compiled call, the port's ``jax.jit``:
     ``compiled(state, inputs, **static)`` runs ``fn(*state, **static,
@@ -182,6 +214,8 @@ class Compiled:
     ``counters``, ``barrier`` and ``capturable`` are a mesh's: what the
     function counts besides the kernels' launches, what runs between the
     warm-up and the capture, and whether its collectives can be captured.
+    ``row_state`` names, by path in ``state``, the leaves a warm-up takes as
+    their first row (see the module's docstring).
     ``len(compiled)`` is the number of graphs it holds.
 
     A method ``fn`` is held weakly: its object holds this ``Compiled``, and
@@ -191,9 +225,10 @@ class Compiled:
     def __init__(self, fn: Callable[..., Any], name: str, *,
                  device: Optional[torch.device] = None, writes_state: bool = False,
                  counters: Sequence[Counter] = (), barrier: Optional[Callable[[], None]] = None,
-                 capturable: bool = True):
+                 capturable: bool = True, row_state: Optional[Callable[[str], bool]] = None):
         self._fn = weakref.WeakMethod(fn) if inspect.ismethod(fn) else (lambda: fn)
         self.name, self.device, self.writes_state = name, device, writes_state
+        self.row_state = row_state
         self.counters, self.barrier, self.capturable = counters, barrier, capturable
         self._held: Dict[Hashable, Tuple[Tuple, Graphed]] = {}
 
@@ -242,8 +277,8 @@ class Compiled:
         # one index exchange a forward) must not carry the warm-up's result into the graph
         def call(on: Tuple, xs: Sequence[torch.Tensor]) -> Any:
             return fn(*on, **static, **{k: x.view_as(x) for k, x in zip(names, xs)})
-        warmup = ((lambda *xs: call(_tree.tree_map(_clone, state), xs)) if self.writes_state
-                  else None)     # on clones of the state and of its generators
+        warmup = ((lambda *xs: call(_warmup_state(state, self.row_state), xs))
+                  if self.writes_state else None)     # on clones of the state and its generators
         return Graphed(lambda *xs: call(state, xs), list(inputs.values()), device=device,
                        name=self.name, warmup=warmup,
                        generators=[_generator(g) for g in leaves
@@ -273,6 +308,7 @@ class Graphed:
         self.name = name
         self.counters: List[Counter] = [Launches(k) for k in KERNELS.values()] + list(counters)
         before = [c.mark() for c in self.counters]
+        counts = {key: t.clone() for key, t in _ON_CARD.items()}
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in inputs]
         for buf, t in zip(self.inputs, inputs):
             buf.copy_(t)
@@ -300,6 +336,11 @@ class Graphed:
         finally:
             for c, m in zip(self.counters, before):
                 c.reset(m)
+            for key, t in _ON_CARD.items():     # a count the warm-up made starts at 0
+                if key in counts:
+                    t.copy_(counts[key])
+                else:
+                    t.zero_()
 
     def replay(self) -> Any:
         """Replay on the inputs already in the static buffers."""

@@ -25,8 +25,10 @@ names and signatures; every timer returns seconds per call.
   replay in :data:`READ_EVERY` of that graph, a span ``trace.read`` of its
   own, and the others go unread. A graph captured with tracing off holds no
   events: :class:`.cuda_graph.Compiled` keeps a traced variant beside it.
-* :func:`counters` reads the graphs' capture counts by name and the kernels'
-  launches (:class:`.cuda_graph.Counter`).
+* :func:`counters` reads the graphs' capture counts by name, the kernels'
+  launches (:class:`.cuda_graph.Counter`) and the counts kept on the card
+  (:func:`.cuda_graph.device_count`, such as the bag rows Adagrad updated),
+  which it alone reads back.
 * :func:`trace` runs ``torch.profiler.profile`` over the block with tracing
   on, and exports a chrome trace into ``trace_dir`` with the program's spans
   in it (host spans on a row of their own, device spans on another). A
@@ -70,6 +72,9 @@ SCOPE_OUTER_FWFM = "FM Outer FwFM"
 SCOPE_SECOND_ORDER = "FM Second Order"
 SCOPE_DEEP = "Deep - Component"
 SCOPE_CIN = "CIN - Component"          # xDeepFM's CIN; a "CIN - Layer {k}" span a layer inside
+SCOPE_BAGS_LOOKUP = "Bags - Lookup"     # DLRM-DCNv2's pooled lookup of its multi-hot bags
+SCOPE_BAGS_UPDATE = "Bags - Update"     # their rows' sum-and-Adagrad in the optimizer
+SCOPE_DCN = "DCN - Component"           # its cross network; a "DCN - Layer {k}" span a layer inside
 
 DEVICE = "device:"     # the name prefix of a span read from a graph's events
 READ_EVERY = 16        # a graph still running at its next replay: one replay in this many is read
@@ -330,12 +335,15 @@ def capturing(device: torch.device):
 def counters(**extra) -> Dict[str, Dict]:
     """What the program has counted: the graphs captured, by name (every
     :class:`.cuda_graph.Compiled` counts its captures), the launches of each
-    kernel of ``cuda_graph.KERNELS``, and the mark of each
+    kernel of ``cuda_graph.KERNELS``, each count kept on the card by name
+    (``bag_rows_updated``: the distinct table rows the bags' Adagrad stepped;
+    read back here, with a sync), and the mark of each
     :class:`.cuda_graph.Counter` given by name in ``extra`` (a ``Log``'s
     entry count)."""
     from . import cuda_graph
     return {"captures": dict(collections.Counter(name for name, _ in cuda_graph.CAPTURES)),
             "launches": {name: k.launches for name, k in cuda_graph.KERNELS.items()},
+            "on_card": cuda_graph.device_counts(),
             **({"extra": {k: c.mark() for k, c in extra.items()}} if extra else {})}
 
 
