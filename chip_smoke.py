@@ -144,8 +144,18 @@ Phases, each printed on its own line:
      cuBLAS's z @ W^T on a materialized z (the yardstick); then the cell's training step
      through make_train_step: the kernels' launches on every replay, the step's peak
      memory below one (B*D, H*m) product, ms a step and its top device operations.
+ 27. DLRM-DCNv2's sparse Adagrad kernel (csrc/bag_adagrad.cu) at the DLRM-DCNv2 cell's
+     shapes: a batch of the cell's traffic (B=8192, 214 ids a row) on a full-size table and
+     accumulator (26,500,127 rows at E=128): two steps equal to the plain version of the
+     kernel's order bit for bit (on a compact copy of the rows the batch reads), a step run
+     twice from one state equal to itself, the first step within the cell's limits of the
+     torch form (grad_gap, median_change_gap, rows_gap 0), rows off the batch untouched;
+     device time as a CUDA graph of 20 calls (median of 10) beside its bound
+     (port_bench/dlrm_roofline.update_bytes at 3.35 TB/s) and the torch form's; then the
+     cell's training step through make_train_step: the kernel's launches on every replay,
+     ms a step and its top device operations.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17 to 26 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17 to 27 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -153,7 +163,8 @@ three arms' AUCs within 2e-4 (the 41.3M-row run's serving check), without the re
 then one JSON line of per-kernel results (the fused Adam kernel's launches by phase group,
 graph replays counted and a sharded rank's added: above 0 on every path that trains, 0 on
 the serving phases 4 to 7 and the timers' phase 21; the CIN's above 0 on phase 26 alone, the
-one path that runs xDeepFM), the card's line, and as the last line
+one path that runs xDeepFM; the bags' Adagrad's above 0 on phase 27 alone, the one path that
+runs DLRM-DCNv2), the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX.
@@ -182,7 +193,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25), (26, 26))
+                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25), (26, 26), (27, 27))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
@@ -190,6 +201,7 @@ REQUEST_SIZES = (BATCH, BATCH, BATCH, 1, 1000)
 TOL = 1e-4   # fp32: float32 sums in another order; int8: epilogue rounding
 BENCH_CONFIGS = Path(__file__).resolve().parent / "port_bench" / "configs"
 BENCH_TRAFFIC = Path(__file__).resolve().parent / "port_bench" / "traffic"
+BENCH_LIMITS = Path(__file__).resolve().parent / "port_bench" / "limits"
 FP32_FLOP_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
 # phase 26: the kernels against the plain version, of the largest value of a result. Both
 # sum the same float32 products in other orders (7,800 terms a value at the cell's layers 2
@@ -3598,6 +3610,156 @@ def cin_phase(args, card: str) -> dict:
             "train_step_ms": round(step_ms, 3), "train_step_peak_bytes": peak}
 
 
+def bag_update_phase(args, card: str) -> dict:
+    """Phase 27: DLRM-DCNv2's sparse Adagrad kernel at the cell's shapes, on a batch of the
+    cell's traffic and a full-size table and accumulator: the kernel against the plain
+    version of its order (bit for bit, on compact copies of the rows the batch reads) over
+    two steps, against itself from one state, and against the torch form within the cell's
+    limits; rows off the batch untouched; device time (a CUDA graph of 20 calls, median of
+    10) beside the bound and the torch form's; then the cell's training step through
+    ``make_train_step``: launches a replay, ms a step and its top device operations.
+    Returns the kernels line's entries."""
+    from port_bench import dlrm, dlrm_roofline
+    from port_bench.reference import dlrm_dcnv2 as ref
+    from xsdeepfwfm_deprecated_torch.data import batching
+    from xsdeepfwfm_deprecated_torch.ops import embedding as emb_ops
+    from xsdeepfwfm_deprecated_torch.ops.cuda import bag_adagrad as ba
+    from xsdeepfwfm_deprecated_torch.train.trainer import (ADAGRAD_EPS, make_optimizer,
+                                                           make_train_step)
+
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    conf = json.loads((BENCH_CONFIGS / "dlrm_dcnv2_criteo1tb.json").read_text())
+    traffic = json.loads((BENCH_TRAFFIC / "train_dlrm_b8192.json").read_text())
+    limits = json.loads((BENCH_LIMITS / "criteo1tb_dlrm_dcnv2_train_b8192.json").read_text())
+    b, lr, width = traffic["batch"], conf["learning_rate"], conf["embedding_size"]
+    mcfg = dlrm.model_config(conf)
+    spec = emb_ops.bag_spec(mcfg.feature_sizes, mcfg.numerical, mcfg.bag_sizes)
+    cols = spec.column_field
+    xi, _, _ = dlrm.sample_rows(conf, traffic, b, args.seed + 27, dev)
+    rows = ref.packed_rows(conf, torch.from_numpy(xi).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 27)
+    grads = [torch.randn((b, len(spec.bag_sizes), width), generator=gen, device=dev) * 1e-2
+             for _ in range(3)]
+    table = torch.empty((dlrm.table_rows(conf), width), device=dev).normal_(generator=gen)
+    table.mul_(dlrm.TABLE_SCALE)
+    acc = torch.zeros_like(table)
+    touched = torch.unique(rows)
+    compact = torch.searchsorted(touched, rows)
+    distinct = touched.numel()
+
+    def checksum():
+        return [int(t.view(torch.int32).sum(dtype=torch.int64)) for t in (table, acc)]
+
+    def bits(a, b_):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b_))
+
+    def kernel(grad, count):
+        ba.bag_adagrad(table, acc, rows, grad, cols, lr, ADAGRAD_EPS, count)
+        return table[touched].clone(), acc[touched].clone(), count
+
+    def on_compact(fn, state, grad):
+        t, a = state[0].clone(), state[1].clone()
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        fn(t, a, grad, count)
+        return t, a, count
+
+    def reference(t, a, grad, count):
+        ba.bag_adagrad_reference(t, a, compact, grad, cols, lr, ADAGRAD_EPS, count)
+
+    def torch_form(t, a, grad, count):
+        emb_ops.bag_adagrad_torch(t, a, emb_ops.BagGrad(compact, grad, spec), lr, ADAGRAD_EPS,
+                                  count)
+
+    before_sums = checksum()
+    w0 = (table[touched].clone(), acc[touched].clone())
+    before = ba.bag_adagrad.launches
+    k1 = kernel(grads[0], torch.zeros((), dtype=torch.int64, device=dev))
+    check(ba.bag_adagrad.launches == before + ba.LAUNCHES,
+          f"a step made {ba.bag_adagrad.launches - before} bag_adagrad launches")
+    r1 = on_compact(reference, w0, grads[0])
+    t1 = on_compact(torch_form, w0, grads[0])
+    k2 = kernel(grads[1], torch.zeros((), dtype=torch.int64, device=dev))
+    r2 = on_compact(reference, k1, grads[1])
+    table[touched], acc[touched] = k1[0], k1[1]
+    k2_again = kernel(grads[1], torch.zeros((), dtype=torch.int64, device=dev))
+    table[touched], acc[touched] = w0[0], w0[1]
+    torch.cuda.synchronize()
+    same_ref = bits(k1[:2], r1[:2]) and bits(k2[:2], r2[:2])
+    same_runs = bits(k2[:2], k2_again[:2])
+    counts = [int(x[2]) for x in (k1, r1, t1, k2, r2, k2_again)]
+    check(same_ref, "the kernel differs from the plain version of its order")
+    check(same_runs, "two runs of the kernel from one state differ")
+    check(counts == [distinct] * len(counts), f"rows updated {counts}, distinct {distinct}")
+    check(checksum() == before_sums, "a row off the batch changed")
+
+    def gap(got, want):
+        return float((got - want).norm() / want.norm())
+    grad_gap = gap(k1[1].sqrt(), t1[1].sqrt())            # the accumulator holds g² after a step
+    change_gap = gap(k1[0] - w0[0], t1[0] - w0[0])
+    check(grad_gap <= limits["grad_gap"] and change_gap <= limits["median_change_gap"],
+          f"against the torch form: gradient gap {grad_gap:.3e}, change gap {change_gap:.3e}")
+    phase(27, f"DLRM-DCNv2's bags' Adagrad at the cell's shapes ({rows.numel():,} ids, "
+              f"{distinct:,} distinct rows of {table.shape[0]:,} at E={width}): equal to the "
+              f"plain version of its order bit for bit over two steps: {same_ref}; two runs "
+              f"bit-equal: {same_runs}; against the torch form gradient gap {grad_gap:.2e} "
+              f"(limit {limits['grad_gap']}), change gap {change_gap:.2e} (limit "
+              f"{limits['median_change_gap']}); rows updated {counts[0]:,} (rows_gap 0); rows "
+              f"off the batch untouched {where}")
+    del k1, k2, k2_again, r1, r2, t1, w0
+
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    kernel_ms = graph_ms(lambda: ba.bag_adagrad(table, acc, rows, grads[2], cols, lr,
+                                                ADAGRAD_EPS, count))
+    bag_grad = emb_ops.BagGrad(rows, grads[2], spec)
+    torch_ms = graph_ms(lambda: emb_ops.bag_adagrad_torch(table, acc, bag_grad, lr, ADAGRAD_EPS,
+                                                          count))
+    bound_ms = dlrm_roofline.update_least_seconds(conf, b, distinct) * 1e3
+    print(f"  bag_adagrad kernel {kernel_ms:.4f} ms | bound {bound_ms:.4f} ms "
+          f"({dlrm_roofline.update_bytes(conf, b, distinct):,.0f} B at 3.35 TB/s; "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it) | torch form {torch_ms:.4f} ms {where}")
+    del table, acc, grads, bag_grad
+    torch.cuda.empty_cache()
+
+    # the cell's training step: make_train_step's replays, at the cell's weights and rows
+    tcfg = dlrm.train_config(conf, traffic)
+    params = dlrm.params(mcfg, dlrm.make(conf, args.seed, dev))
+    optimizer = make_optimizer(tcfg)
+    opt_state = optimizer.init(params)
+    step = make_train_step(mcfg, tcfg, optimizer)
+    xi, xv, y = dlrm.sample_rows(conf, traffic, 6 * b, args.seed, dev)
+    batches = list(batching.prefetch_to_device(batching.iter_batches(xi, xv, y, b), dev))
+    torch.cuda.empty_cache()
+    losses = [step(params, opt_state, batches[0])]                 # the capture
+    per_step = []
+    for batch in batches[1:]:
+        before = ba.bag_adagrad.launches
+        losses.append(step(params, opt_state, batch))
+        per_step.append(ba.bag_adagrad.launches - before)
+    torch.cuda.synchronize()
+    check(per_step == [ba.LAUNCHES] * len(per_step),
+          f"bag_adagrad launches a train step {per_step}, not {ba.LAUNCHES}")
+    check(all(bool(torch.isfinite(l)) for l in losses), "a non-finite loss")
+    i = [0]
+
+    def one():
+        i[0] = (i[0] + 1) % len(batches)
+        step(params, opt_state, batches[i[0]])
+    step_ms = cuda_ms(one, 10, warmup=2)
+    _, busy_ms, top = profile_top(one, calls=5)
+    print(f"  DLRM-DCNv2 train step at B={b} through make_train_step: {per_step[0]} bag_adagrad "
+          f"launches a replay ({len(per_step)} replays), {step_ms:.3f} ms a step between "
+          f"events, {1e3 * b / step_ms:,.0f} examples/s, {busy_ms:.3f} ms busy {where}")
+    for key, ms, n_calls in top:
+        print(f"    {ms:8.4f} ms  x{n_calls:g}  {key}")
+    del params, opt_state, step, batches
+    torch.cuda.empty_cache()
+    return {"kernel_ms": round(kernel_ms, 4), "bound_ms": round(bound_ms, 4),
+            "plain_ms": round(torch_ms, 4), "distinct_rows": distinct,
+            "grad_gap": grad_gap, "change_gap": change_gap,
+            "launches_per_train_step": per_step[0], "train_step_ms": round(step_ms, 3)}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -3825,8 +3987,8 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26), without the result "
-                    "lines")
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27), without the "
+                    "result lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
                          "the fused tower's launches and its max |diff| against the plain "
@@ -3891,6 +4053,8 @@ def main(argv=None) -> int:
             refresh_phase(args, card)
         if 26 in groups:
             cin_phase(args, card)
+        if 27 in groups:
+            bag_update_phase(args, card)
         print(card)
         return 0
     if args.parity:
@@ -3901,18 +4065,22 @@ def main(argv=None) -> int:
     # each phase group's fused Adam and prune_search launches, a rank's included: the
     # kernels line's. A path that trains must launch fused Adam, one that refreshes the
     # pruning prune_search, and every other path neither.
+    from xsdeepfwfm_deprecated_torch.ops.cuda.bag_adagrad import bag_adagrad
     from xsdeepfwfm_deprecated_torch.ops.cuda.cin import cin
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
     from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
-    adam, prune, cins = {}, {}, {}
+    adam, prune, cins, bags = {}, {}, {}, {}
 
     def counting_adam(path: str, trains: bool, prunes: bool, run, *run_args,
-                      xdeepfm: bool = False) -> dict:
-        fused_adam.launches = prune_search.launches = cin.launches = 0
+                      xdeepfm: bool = False, dlrm: bool = False) -> dict:
+        fused_adam.launches = prune_search.launches = cin.launches = bag_adagrad.launches = 0
         out = run(*run_args) or {}
         check(cin.launches > 0 if xdeepfm else cin.launches == 0,
               f"the {path} path made {cin.launches} CIN launches")
         cins[f"launches_{path}_path"] = cin.launches
+        check(bag_adagrad.launches > 0 if dlrm else bag_adagrad.launches == 0,
+              f"the {path} path made {bag_adagrad.launches} bag_adagrad launches")
+        bags[f"launches_{path}_path"] = bag_adagrad.launches
         n = fused_adam.launches + out.pop("rank_adam_launches", 0)
         check(n > 0 if trains else n == 0, f"the {path} path made {n} fused Adam launches")
         adam[f"launches_{path}_path"] = n
@@ -3959,7 +4127,12 @@ def main(argv=None) -> int:
 
     # ---- 26. the CIN's layer kernels and the xDeepFM cell's train step
     cin_out = counting_adam("xdeepfm", True, False, cin_phase, args, card, xdeepfm=True)
-    for name, counts in (("fused Adam", adam), ("prune_search", prune), ("cin", cins)):
+
+    # ---- 27. DLRM-DCNv2's sparse Adagrad kernel and the DLRM cell's train step (Adagrad:
+    # no fused Adam)
+    bag_out = counting_adam("dlrm", False, False, bag_update_phase, args, card, dlrm=True)
+    for name, counts in (("fused Adam", adam), ("prune_search", prune), ("cin", cins),
+                         ("bag_adagrad", bags)):
         print(f"  {name} launches by path (graph replays counted): "
               + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in counts.items()))
 
@@ -3977,7 +4150,10 @@ def main(argv=None) -> int:
          "source": "xsdeepfwfm_deprecated_torch/csrc/prune_search.cu", "replaces": None,
          **prune, **refreshed},
         {"name": "cin", "route": "cuda", "source": "xsdeepfwfm_deprecated_torch/csrc/cin.cu",
-         "replaces": None, **cins, **cin_out}]
+         "replaces": None, **cins, **cin_out},
+        {"name": "bag_adagrad", "route": "cuda",
+         "source": "xsdeepfwfm_deprecated_torch/csrc/bag_adagrad.cu", "replaces": None,
+         **bags, **bag_out}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,7 +16,8 @@ records its ids and hands autograd a leaf of its own for the pooled bags
 (:func:`recording_bags`), so that the backward gives the update the bags'
 gradient (:class:`BagGrad`) and nothing the size of the table;
 :func:`bag_adagrad_` then sums the gradients of equal ids and steps Adagrad
-on the batch's distinct rows alone, in fixed sizes and with no host sync.
+on the batch's distinct rows alone, with no host sync: on the card as the
+kernel of ``ops/cuda/bag_adagrad``, on the CPU in fixed-size torch passes.
 
 Not ported, because they are TPU gather workarounds that leave the result
 unchanged: the routed and windowed gathers (``:161-339``) and the grouped
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import constant, scaled_normal
+from .cuda.bag_adagrad import bag_adagrad
 
 
 @dataclass(frozen=True)
@@ -388,15 +390,29 @@ def bag_adagrad_(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: float,
     """Adagrad (``acc += g²``; ``w -= lr·g·rsqrt(acc + eps)`` where acc > 0)
     on the rows the batch read, in place, the gradients of equal ids summed
     first: what the dense rule gives, since every other row's gradient is 0.
+    ``count`` (int64, on the device) gains the number of distinct rows.
 
-    Fixed sizes, no host sync: the N = B·columns rows are sorted, each
-    distinct row is a segment, and N slots hold the segments' rows and
-    summed gradients. A slot past the last segment keeps its sorted row with
-    a zero gradient, which adds exactly nothing (and spreads those adds over
-    many rows, where one row would take them all in turn). Each column's
-    gradients are added into their segments straight from the bags', one
-    column a launch, so no (N, E) copy of them is made. ``count`` (int64, on
-    the card) gains the number of distinct rows."""
+    On the card the kernel of ``ops/cuda/bag_adagrad`` (which raises on what it
+    does not take): each distinct row's gradients summed in registers in
+    position order and the row stepped once. On the CPU
+    :func:`bag_adagrad_torch`."""
+    if table.device.type == "cuda":
+        bag_adagrad(table, acc, g.rows, g.grad, g.spec.column_field, lr, eps, count)
+    else:
+        bag_adagrad_torch(table, acc, g, lr, eps, count)
+
+
+@torch.no_grad()
+def bag_adagrad_torch(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: float,
+                      eps: float, count: torch.Tensor) -> None:
+    """:func:`bag_adagrad_` in torch passes of fixed sizes, with no host sync:
+    the N = B·columns rows are sorted, each distinct row is a segment, and N
+    slots hold the segments' rows and summed gradients. A slot past the last
+    segment keeps its sorted row with a zero gradient, which adds exactly
+    nothing (and spreads those adds over many rows, where one row would take
+    them all in turn). Each column's gradients are added into their segments
+    straight from the bags', one column a launch, so no (N, E) copy of them is
+    made."""
     b, fields, e = g.grad.shape
     ids = g.rows.reshape(-1)
     n = ids.numel()
