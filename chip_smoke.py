@@ -151,9 +151,13 @@ Phases, each printed on its own line:
      twice from one state equal to itself, the first step within the cell's limits of the
      torch form (grad_gap, median_change_gap, rows_gap 0), rows off the batch untouched;
      device time as a CUDA graph of 20 calls (median of 10) beside its bound
-     (port_bench/dlrm_roofline.update_bytes at 3.35 TB/s) and the torch form's; then the
-     cell's training step through make_train_step: the kernel's launches on every replay,
-     ms a step and its top device operations.
+     (port_bench/dlrm_roofline.update_bytes at 3.35 TB/s) and the torch form's; the
+     kernel's skip form at a four-card rank's shapes (rank 0's 51,883,622 rows of the whole
+     model's table and accumulator, the 14.0 M ids of a global batch of 65,536, those held
+     elsewhere at the sink): one step equal to the plain version with skip bit for bit, the
+     sink's row untouched, the count the distinct rows held; then the cell's training step
+     through make_train_step: the kernel's launches on every replay, ms a step and its top
+     device operations.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
 4 to 7, 8 to 11, 12 to 16, and 17 to 27 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
@@ -3720,6 +3724,7 @@ def bag_update_phase(args, card: str) -> dict:
           f"{100 * bound_ms / kernel_ms:.1f}% of it) | torch form {torch_ms:.4f} ms {where}")
     del table, acc, grads, bag_grad
     torch.cuda.empty_cache()
+    skip_case = bag_skip_case(args, card)
 
     # the cell's training step: make_train_step's replays, at the cell's weights and rows
     tcfg = dlrm.train_config(conf, traffic)
@@ -3757,7 +3762,89 @@ def bag_update_phase(args, card: str) -> dict:
     return {"kernel_ms": round(kernel_ms, 4), "bound_ms": round(bound_ms, 4),
             "plain_ms": round(torch_ms, 4), "distinct_rows": distinct,
             "grad_gap": grad_gap, "change_gap": change_gap,
-            "launches_per_train_step": per_step[0], "train_step_ms": round(step_ms, 3)}
+            "launches_per_train_step": per_step[0], "train_step_ms": round(step_ms, 3),
+            "skip_case": skip_case}
+
+
+def bag_skip_case(args, card: str) -> dict:
+    """Phase 27's sharded case: the kernel's ``skip`` form at a four-card rank's shapes. Rank
+    0's table of ``dlrm_dcnv2_criteo1tb_whole`` (the whole tables, its blocks of the row-wise
+    ones, the zero sink: 51,883,622 rows at E=128) and as large an accumulator; the global
+    batch's ids (4 x 16,384 rows of 214, each rank's drawn as the four-card cell draws them)
+    mapped to the rank's rows, the sink's where another rank holds them; a bag gradient of the
+    global batch. One step with ``skip`` at the sink, against the plain version with it, bit for
+    bit on compact copies of the rows the batch reads; the sink's row untouched, rows off the
+    batch untouched, the count the distinct rows held."""
+    from port_bench import dlrm, dlrm_whole
+    from xsdeepfwfm_deprecated_torch.ops import embedding as emb_ops
+    from xsdeepfwfm_deprecated_torch.ops.cuda import bag_adagrad as ba
+    from xsdeepfwfm_deprecated_torch.parallel import bag_sharding
+    from xsdeepfwfm_deprecated_torch.train.trainer import ADAGRAD_EPS
+
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    conf = json.loads((BENCH_CONFIGS / "dlrm_dcnv2_criteo1tb_whole.json").read_text())
+    traffic = json.loads((BENCH_TRAFFIC / "train_dlrm_rw4_b16384.json").read_text())
+    b, ranks, lr, width = (traffic["batch"], traffic["ranks"], conf["learning_rate"],
+                           conf["embedding_size"])
+    spec = emb_ops.bag_spec(conf["feature_sizes"], conf["numerical"], conf["bag_sizes"])
+    place = bag_sharding.BagPlacement(spec, ranks, 0, conf["bag_row_wise_rows"])
+    ids = torch.cat([torch.from_numpy(dlrm_whole.sample_rows(conf, traffic, b, args.seed + 27, r,
+                                                             dev)[0]) for r in range(ranks)])
+    rows = bag_sharding.local_rows(place, ids.to(dev), place.rows)
+    del ids
+    sink = place.rows - 1
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 28)
+    grad = torch.randn((ranks * b, len(spec.bag_sizes), width), generator=gen, device=dev) * 1e-2
+    table = torch.empty((place.rows, width), device=dev).normal_(generator=gen)
+    table.mul_(dlrm.TABLE_SCALE)
+    table[sink] = 0.0
+    acc = torch.zeros_like(table)
+    touched = torch.unique(rows)                        # sorted: the sink last
+    compact = torch.searchsorted(touched, rows)
+    at_sink = int((rows == sink).sum())
+    check(int(touched[-1]) == sink and at_sink > 0, "no id of the batch falls to the sink")
+    held = touched.numel() - 1
+
+    def checksum():     # a chunk at a time: the int64 sum of a whole table's bits would not fit
+        return [sum(int(c.view(torch.int32).sum(dtype=torch.int64)) for c in t.split(1 << 20))
+                for t in (table, acc)]
+
+    def bits(a, b_):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b_))
+
+    before_sums = checksum()
+    w0 = (table[touched], acc[touched])
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    before = ba.bag_adagrad.launches
+    ba.bag_adagrad(table, acc, rows, grad, spec.column_field, lr, ADAGRAD_EPS, count, skip=sink)
+    check(ba.bag_adagrad.launches == before + ba.LAUNCHES,
+          f"a step made {ba.bag_adagrad.launches - before} bag_adagrad launches")
+    k1 = (table[touched], acc[touched])
+    table[touched], acc[touched] = w0[0], w0[1]
+    n_ref = torch.zeros((), dtype=torch.int64, device=dev)
+    ba.bag_adagrad_reference(w0[0], w0[1], compact, grad, spec.column_field, lr, ADAGRAD_EPS,
+                             n_ref, skip=held)
+    torch.cuda.synchronize()
+    same = bits(k1, w0)
+    sink_left = bool((k1[0][-1] == 0).all() and (k1[1][-1] == 0).all())
+    counts = [int(count), int(n_ref)]
+    check(same, "with skip, the kernel differs from the plain version of its order")
+    check(sink_left, "the sink's row or accumulator changed")
+    check(counts == [held, held], f"rows updated {counts}, distinct rows held {held:,}")
+    check(checksum() == before_sums, "a row off the batch changed")
+    peak = torch.cuda.max_memory_allocated()
+    phase(27, f"the bags' Adagrad with skip at a four-card rank's shapes ({rows.numel():,} ids of "
+              f"the global batch, {at_sink:,} of them at the sink, a segment of "
+              f"{-(-at_sink // ba.SLICE):,} slices; {held:,} distinct rows held of "
+              f"{table.shape[0]:,} at E={width}): equal to the plain version of its order bit "
+              f"for bit: {same}; the sink's row untouched: {sink_left}; rows updated "
+              f"{counts[0]:,}; rows off the batch untouched; peak {peak / 1e9:.2f} GB {where}")
+    del table, acc, grad, rows, compact, touched, w0, k1
+    torch.cuda.empty_cache()
+    return {"ids": ranks * b * len(spec.column_field), "at_sink": at_sink, "rows_held": held,
+            "bit_equal": same, "peak_bytes": peak}
 
 
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:

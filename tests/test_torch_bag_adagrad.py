@@ -229,6 +229,43 @@ def test_a_one_row_table_takes_every_id_as_one_segment_of_many_slices():
     assert np.array_equal(got[1][0].numpy(), a)
 
 
+def _sunk(rows=400, b=96, width=8, seed=11):
+    """A rank's step of a sharded table: three ids in four read rows held
+    elsewhere, all mapped to the table's last row (the sink, from which rows are
+    left), a segment of many slices."""
+    table, acc, ids, grad = _problem(rows, b, width=width, seed=seed)
+    elsewhere = torch.rand(ids.shape, generator=torch.Generator().manual_seed(seed)) < 0.75
+    return table, acc, torch.where(elsewhere, torch.full_like(ids, rows - 1), ids), grad
+
+
+def test_rows_from_skip_up_are_left_uncounted_and_the_rest_step_as_without_them():
+    """Both forms with ``skip``: the sink's row and accumulator unchanged to the bit
+    and not counted; every other row as a step without ``skip`` leaves it (to the
+    bit in the kernel's order, whose slices the sink's ids, sorted last, do not
+    cut)."""
+    table, acc, ids, grad = _sunk()
+    sink = table.shape[0] - 1
+    cols = _column_field(BAGS)
+    spec = emb_ops.BagSpec(tuple(table.shape[0] for _ in BAGS), BAGS)
+    plain = (table.clone(), acc.clone())
+    _reference(*plain, ids, grad, BAGS)
+    for form in ("kernel_order", "torch"):
+        got, count = (table.clone(), acc.clone()), torch.zeros((), dtype=torch.int64)
+        if form == "torch":
+            emb_ops.bag_adagrad_torch(*got, emb_ops.BagGrad(ids, grad, spec, skip=sink), LR, EPS,
+                                      count)
+        else:
+            ba.bag_adagrad_reference(*got, ids, grad, cols, LR, EPS, count, skip=sink)
+        assert int(count) == int(torch.unique(ids[ids < sink]).numel()) > 0
+        assert torch.equal(got[0][sink], table[sink]) and torch.equal(got[1][sink], acc[sink])
+        for a, b in zip(got, plain):
+            if form == "torch":
+                np.testing.assert_allclose(a[:sink].numpy(), b[:sink].numpy(), rtol=1e-5,
+                                           atol=1e-7)
+            else:
+                assert torch.equal(a[:sink], b[:sink])
+
+
 def test_the_cpu_keeps_the_torch_form_and_launches_nothing():
     """``Optimizer.update`` on a bag table on the CPU runs ``bag_adagrad_``'s torch
     form: equal to it to the bit, the kernel's count and ``profiling.counters()``'s
@@ -300,6 +337,26 @@ def test_cuda_kernel_equals_its_order_reference_to_the_bit(case):
         assert int(run[2]) == int(n_want) == int(torch.unique(ids).numel())
         for a, b in zip(run[:2], want):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 128])
+def test_cuda_kernel_leaves_rows_from_skip_up_as_its_reference_does(width):
+    """On the card: a sharded step's ids, three in four on the sink; the kernel
+    with ``skip`` against :func:`bag_adagrad_reference` with it, to the bit, the
+    sink's row untouched and not counted."""
+    dev = _card()
+    table, acc, ids, grad = (t.to(dev) for t in _sunk(rows=3000, b=2048, width=width))
+    sink, cols = table.shape[0] - 1, _column_field(BAGS)
+    got, count = (table.clone(), acc.clone()), torch.zeros((), dtype=torch.int64, device=dev)
+    ba.bag_adagrad(*got, ids, grad, cols, LR, EPS, count, sink)
+    want, n_want = (table.clone(), acc.clone()), torch.zeros((), dtype=torch.int64, device=dev)
+    ba.bag_adagrad_reference(*want, ids, grad, cols, LR, EPS, n_want, skip=sink)
+    torch.cuda.synchronize()
+    assert int(count) == int(n_want) == int(torch.unique(ids[ids < sink]).numel())
+    assert torch.equal(got[0][sink], table[sink]) and torch.equal(got[1][sink], acc[sink])
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

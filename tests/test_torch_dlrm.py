@@ -306,8 +306,9 @@ def test_the_paths_without_bags_refuse_the_model(path):
         elif path == "prune_refresh":
             trainer.PruneRefresh(dict(emb_r=1.0, emb_corr=1.0, prune_fm=True, prune_deep=True,
                                       prune_r=False, structured_deep=False))(_params(), 0.5)
-        elif path == "sharded_fit":
-            trainer.DLRMEstimator(_mcfg(), _tcfg(mesh_data=2), device="cpu").fit(*fit)
+        elif path == "sharded_fit":     # its bags shard over -mesh_data alone
+            trainer.DLRMEstimator(_mcfg(), _tcfg(mesh_data=2, mesh_model=2),
+                                  device="cpu").fit(*fit)
         elif path == "adam_fit":
             trainer.DLRMEstimator(_mcfg(), _tcfg(optimizer_type="adam"), device="cpu").fit(*fit)
         else:

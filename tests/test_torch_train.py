@@ -489,10 +489,11 @@ def test_mesh_flags_raise_until_the_sharding_slice():
 # the port's own models (xDeepFM, DLRM-DCNv2): flags and config fields that the JAX package lacks
 PORT_FLAGS = {"use_cin": 0, "cin_layers": "200,200,200", "use_dlrm": 0, "bag_sizes": "",
               "dense_arch_layers": "512,256,128", "dcn_num_layers": 3, "dcn_low_rank_dim": 512,
-              "over_arch_layers": "1024,1024,512,256,1", "optimizer_type": "adam"}
+              "over_arch_layers": "1024,1024,512,256,1", "optimizer_type": "adam",
+              "bag_row_wise_rows": 1_000_000}
 PORT_FIELDS = {"use_cin": False, "cin_layers": (), "use_dlrm": False, "bag_sizes": (),
                "dense_arch_layers": (), "dcn_num_layers": 0, "dcn_low_rank_dim": 0,
-               "over_arch_layers": ()}
+               "over_arch_layers": (), "bag_row_wise_rows": 1_000_000}
 
 
 def _shared(ns, own):

@@ -19,7 +19,9 @@ first-order linear part and a bias, with or without the deep tower; and
 DLRM-DCNv2 (``use_dlrm``, MLPerf's recommendation model: multi-hot bags of
 ``bag_sizes`` ids a categorical field, a dense arch for the numeric fields, a
 low-rank cross network and an over arch; ``-use_dlrm 1 -use_fwfm 0 -use_deep 0
--optimizer_type adag -l2 0``). Their fields and flags, with
+-optimizer_type adag -l2 0``; on a ``-mesh_data`` mesh its bag tables of more
+than ``-bag_row_wise_rows`` rows are cut row-wise over the ranks,
+``parallel/bag_sharding.py``). Their fields and flags, with
 ``-optimizer_type``, are the only ones the JAX package lacks.
 """
 
@@ -68,6 +70,8 @@ class ModelConfig:
     dcn_num_layers: int = 0                  # low-rank cross layers
     dcn_low_rank_dim: int = 0                # their rank
     over_arch_layers: Tuple[int, ...] = ()   # the over arch's widths, the last 1
+    bag_row_wise_rows: int = 1_000_000       # on a -mesh_data mesh a bag table of more rows is
+                                             # cut row-wise over the ranks, the rest held whole
 
     h_depth: int = 3
     deep_nodes: int = 400
@@ -355,6 +359,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-dcn_low_rank_dim", default=512, type=int, help="The cross layers' rank")
     p.add_argument("-over_arch_layers", default="1024,1024,512,256,1", type=str,
                    help="The over arch's widths, comma-separated, the last 1")
+    p.add_argument("-bag_row_wise_rows", default=1_000_000, type=int,
+                   help="DLRM-DCNv2 on a -mesh_data mesh: bag tables of more rows are cut "
+                        "row-wise over the ranks, the others held whole on every rank")
     p.add_argument("-optimizer_type", default="adam", type=str,
                    choices=["adam", "rmsp", "adag", "sgd"],
                    help="The optimizer (DLRM-DCNv2's bags train with adag only)")
@@ -382,7 +389,8 @@ def _dlrm_keys(pars, field_size: int) -> dict:
     return dict(use_dlrm=True, bag_sizes=bags,
                 dense_arch_layers=_widths(pars.dense_arch_layers),
                 dcn_num_layers=pars.dcn_num_layers, dcn_low_rank_dim=pars.dcn_low_rank_dim,
-                over_arch_layers=_widths(pars.over_arch_layers))
+                over_arch_layers=_widths(pars.over_arch_layers),
+                bag_row_wise_rows=pars.bag_row_wise_rows)
 
 
 def configs_from_args(pars, field_size: int, feature_sizes) -> Tuple[ModelConfig, TrainConfig]:

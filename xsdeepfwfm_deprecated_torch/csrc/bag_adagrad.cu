@@ -43,6 +43,13 @@
 // warm-up on a one-row stand-in of the table) is summed by many warps, and a result
 // depends only on the sorted order: two runs are equal to the bit.
 // ops/cuda/bag_adagrad.bag_adagrad_reference repeats this order in plain PyTorch.
+//
+// Keys from `skip` up are not stepped and not counted: a rank of a sharded step (parallel/
+// bag_sharding) hands the whole global batch's ids over, those of rows it does not hold
+// mapped to its table's last row, which sort to the end. A slice reads their keys and
+// leaves them; the join ends at once where a run-on segment's key is one of them. Both
+// kernels take it as a template flag: a step without `skip` (one device) runs the kernels
+// as they were, with no vote for it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +74,7 @@ struct Params {
   float4* partial;                   // (ceil(n / SLICE), vecs): a slice's run-on partial sum
   unsigned long long* count;         // adds the number of distinct rows
   int n, columns, fields, vecs;
+  int skip;                          // with kSkip, keys from here up are left: rows held elsewhere
   float eps, neg_lr;
   unsigned char field_of[MAX_COLUMNS];   // column -> its field
 };
@@ -130,6 +138,7 @@ __device__ __forceinline__ void load_row(const Params& a, int row, int lane, flo
   s = a.acc[at];
 }
 
+template <bool kSkip>
 __global__ void __launch_bounds__(THREADS) slice_kernel(const __grid_constant__ Params a) {
   __shared__ unsigned block_heads;
   const int lane = threadIdx.x & 31;
@@ -139,8 +148,10 @@ __global__ void __launch_bounds__(THREADS) slice_kernel(const __grid_constant__ 
   const long long first = slice * SLICE;
   if (first < a.n) {
     const int len = (int)min((long long)SLICE, a.n - first);
-    const bool in = lane < len;
-    const int key = in ? a.keys[first + lane] : -1;
+    const int key = lane < len ? a.keys[first + lane] : -1;
+    // the lanes whose rows are stepped: a prefix of the slice, since the keys are sorted
+    const int live = kSkip ? __popc(__ballot_sync(FULL, lane < len && key < a.skip)) : len;
+    const bool in = lane < live;
     const int pos = in ? (int)a.pos[first + lane] : 0;
     const int before = first > 0 ? a.keys[first - 1] : -1;
     const int after = first + len < a.n ? a.keys[first + len] : -1;
@@ -148,13 +159,14 @@ __global__ void __launch_bounds__(THREADS) slice_kernel(const __grid_constant__ 
     const int prev = lane == 0 ? before : up;
     const unsigned heads = __ballot_sync(FULL, in && key != prev);
     const bool runs_in = __shfl_sync(FULL, key, 0) == before;           // from an earlier slice
-    const bool runs_on = __shfl_sync(FULL, key, len - 1) == after;      // into the next slice
-    unsigned rest = heads | 1u;                                         // each piece's first lane
+    const bool runs_on = (!kSkip || live == len) &&
+                         __shfl_sync(FULL, key, len - 1) == after;      // into the next slice
+    unsigned rest = !kSkip || live ? heads | 1u : 0u;                   // each piece's first lane
     while (rest) {
       const int s = __ffs(rest) - 1;
       rest &= rest - 1;
-      const int e = rest ? __ffs(rest) - 1 : len;
-      if (e == len && runs_on) {                       // a partial sum for the second pass
+      const int e = rest ? __ffs(rest) - 1 : live;
+      if (e == live && runs_on) {                      // a partial sum for the second pass
         const float4 sum = sum_lanes(a, pos, s, e, lane);
         if (lane < a.vecs) a.partial[slice * a.vecs + lane] = sum;
       } else if (!(s == 0 && runs_in)) {               // a whole segment: step it now
@@ -170,12 +182,14 @@ __global__ void __launch_bounds__(THREADS) slice_kernel(const __grid_constant__ 
   if (threadIdx.x == 0 && block_heads) atomicAdd(a.count, (unsigned long long)block_heads);
 }
 
+template <bool kSkip>
 __global__ void __launch_bounds__(THREADS) join_kernel(const __grid_constant__ Params a) {
   const int lane = threadIdx.x & 31;
   const long long slice = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const long long first = slice * SLICE;
   if (first + SLICE >= a.n) return;                    // nothing after this slice
   const int key = a.keys[first + SLICE - 1];
+  if (kSkip && key >= a.skip) return;                  // a row this rank does not hold
   if (a.keys[first + SLICE] != key) return;            // its last segment ends here
   if (first > 0 && a.keys[first] == key && a.keys[first - 1] == key) return;   // began earlier
   float4 w, acc;
@@ -217,16 +231,17 @@ extern "C" int bag_adagrad_slice_ids() { return SLICE; }
 // position order) and pos (n int64) are the sorted ids and their positions in the
 // (B, columns) ids; field_of[c] is column c's field; grad is (B, fields, width) float32 with
 // strides grad_b_stride and grad_f_stride floats (its width contiguous), 16-byte aligned;
-// table and acc are (rows, width) float32, 16-byte aligned, every key below rows; partial
-// is ceil(n / SLICE) x width float32 of scratch; count is one int64. Returns a cudaError_t
+// table and acc are (rows, width) float32, 16-byte aligned, every key below rows; keys from
+// skip up are left (skip < 0: none); partial is ceil(n / SLICE) x width float32 of scratch;
+// count is one int64. Returns a cudaError_t
 // (0 on success) without synchronizing; shapes the kernel does not take return
 // cudaErrorInvalidValue before any launch.
 extern "C" int bag_adagrad_step(float* table, float* acc, const float* grad, const int* keys,
                                 const long long* pos, float* partial, long long* count,
                                 long long n, int columns, int fields, int width,
                                 long long grad_b_stride, long long grad_f_stride,
-                                const unsigned char* field_of, float eps, float neg_lr,
-                                cudaStream_t stream) {
+                                const unsigned char* field_of, int skip, float eps,
+                                float neg_lr, cudaStream_t stream) {
   if (n < 0 || n >= 0x7fffffffLL || columns < 1 || columns > MAX_COLUMNS || fields < 1 ||
       width < 4 || width % 4 != 0 || width / 4 > MAX_VECS || grad_b_stride % 4 != 0 ||
       grad_f_stride % 4 != 0)
@@ -249,14 +264,21 @@ extern "C" int bag_adagrad_step(float* table, float* acc, const float* grad, con
   a.columns = columns;
   a.fields = fields;
   a.vecs = width / 4;
+  a.skip = skip;
   a.eps = eps;
   a.neg_lr = neg_lr;
   if (n == 0) return (int)cudaSuccess;
   const long long slices = (n + SLICE - 1) / SLICE;
   const unsigned blocks = (unsigned)((slices + WARPS - 1) / WARPS);
-  slice_kernel<<<blocks, THREADS, 0, stream>>>(a);
+  if (skip >= 0)
+    slice_kernel<true><<<blocks, THREADS, 0, stream>>>(a);
+  else
+    slice_kernel<false><<<blocks, THREADS, 0, stream>>>(a);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  join_kernel<<<blocks, THREADS, 0, stream>>>(a);
+  if (skip >= 0)
+    join_kernel<true><<<blocks, THREADS, 0, stream>>>(a);
+  else
+    join_kernel<false><<<blocks, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ alone (``train.trainer``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -93,14 +93,20 @@ def _arch(layers, x: torch.Tensor, last_relu: bool) -> torch.Tensor:
 
 
 def forward(params: Dict, xi: torch.Tensor, xv: torch.Tensor, cfg: ModelConfig, *,
-            train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            train: bool = False, generator: Optional[torch.Generator] = None,
+            lookup_fn: Optional[Callable] = None) -> torch.Tensor:
     """(xi int (B, Σ bag_sizes), xv f32 (B, numerical)) → logits (B,). The
     model has no dropout: ``train`` and ``generator`` change nothing, and the
-    forward is the serving forward too."""
+    forward is the serving forward too. ``lookup_fn(table, spec, xi)`` pools
+    the bags in place of :func:`..ops.embedding.bag_lookup` (a rank's sharded
+    lookup, ``parallel/bag_sharding``, which opens its own spans)."""
     b = xi.shape[0]
     dense = _arch(params["dense_arch"]["layers"], xv.to(torch.float32), last_relu=True)
-    with prof.named_scope(prof.SCOPE_BAGS_LOOKUP):
-        bags = emb_ops.bag_lookup(params[BAGS]["dense"], make_bag_spec(cfg), xi)   # (B, C, E)
+    if lookup_fn is not None:
+        bags = lookup_fn(params[BAGS]["dense"], make_bag_spec(cfg), xi)
+    else:
+        with prof.named_scope(prof.SCOPE_BAGS_LOOKUP):
+            bags = emb_ops.bag_lookup(params[BAGS]["dense"], make_bag_spec(cfg), xi)   # (B, C, E)
     x0 = torch.cat([dense[:, None, :], bags], dim=1).reshape(b, -1)
     with prof.named_scope(prof.SCOPE_DCN):
         x = inter_ops.dcn_cross(x0, params["cross"]["layers"])

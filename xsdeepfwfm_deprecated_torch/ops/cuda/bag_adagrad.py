@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -116,11 +116,18 @@ def segment_sums(keys: torch.Tensor, pos: torch.Tensor, grad: torch.Tensor,
 @torch.no_grad()
 def bag_adagrad_reference(table: torch.Tensor, acc: torch.Tensor, rows: torch.Tensor,
                           grad: torch.Tensor, column_field: Sequence[int], lr: float,
-                          eps: float, count: torch.Tensor, *, slice_ids: int = SLICE) -> None:
+                          eps: float, count: torch.Tensor, *, slice_ids: int = SLICE,
+                          skip: Optional[int] = None) -> None:
     """The kernel's step in plain PyTorch, in place on ``table``, ``acc`` and
     ``count``: :func:`segment_sums` over the stably sorted ids, then the step of
-    ``ops/embedding.bag_adagrad_torch`` on each distinct row once."""
+    ``ops/embedding.bag_adagrad_torch`` on each distinct row once. Rows from
+    ``skip`` up are left, as the kernel leaves them: their ids sort last, so the
+    pieces of the ids before them are the same without them, and they are cut
+    before the sums."""
     keys, pos = torch.sort(rows.reshape(-1), stable=True)
+    if skip is not None:
+        live = int((keys < skip).sum())
+        keys, pos = keys[:live], pos[:live]
     rows_, g = segment_sums(keys, pos, grad, column_field, slice_ids=slice_ids)
     a = acc.index_select(0, rows_).add_(g * g)
     acc.index_copy_(0, rows_, a)
@@ -136,7 +143,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     i64 = ctypes.c_longlong
     lib.bag_adagrad_step.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i64,
-                                     i64, ctypes.POINTER(ctypes.c_ubyte), ctypes.c_float,
+                                     i64, ctypes.POINTER(ctypes.c_ubyte), i32, ctypes.c_float,
                                      ctypes.c_float, ptr]
     lib.bag_adagrad_step.restype = i32
     lib.bag_adagrad_slice_ids.restype = i32
@@ -150,14 +157,17 @@ def _lib() -> ctypes.CDLL:
 @torch.no_grad()
 def bag_adagrad(table: torch.Tensor, acc: torch.Tensor, rows: torch.Tensor, grad: torch.Tensor,
                 column_field: Sequence[int], lr: float, eps: float,
-                count: torch.Tensor) -> None:
+                count: torch.Tensor, skip: Optional[int] = None) -> None:
     """Adagrad on the rows that ``rows`` (B, columns) name, in place on ``table``
     and ``acc``, each distinct row's gradient the sum of its ids' bag gradients
     ``grad`` (B, fields, E), E contiguous (column c reads field ``column_field[c]``:
     the backward's gradient of the pooled bags is a view into x₀'s); ``count``
-    gains the number of distinct rows. ``LAUNCHES`` launches after a stable sort, or
-    a ``ValueError`` before any."""
+    gains the number of distinct rows. Rows from ``skip`` up (a sharded step's
+    rows held elsewhere) are left and not counted. ``LAUNCHES`` launches after a
+    stable sort, or a ``ValueError`` before any."""
     check_bags(table, acc, rows, grad, column_field, count)
+    _check(skip is None or 0 <= skip <= table.shape[0],
+           f"skip {skip} is not a row of the {table.shape[0]}")
     n = rows.numel()
     keys, pos = torch.sort(rows.reshape(-1).to(torch.int32), stable=True)
     partial = torch.empty((-(-n // SLICE), table.shape[1]), dtype=torch.float32,
@@ -167,7 +177,8 @@ def bag_adagrad(table: torch.Tensor, acc: torch.Tensor, rows: torch.Tensor, grad
         rc = _lib().bag_adagrad_step(
             table.data_ptr(), acc.data_ptr(), grad.data_ptr(), keys.data_ptr(), pos.data_ptr(),
             partial.data_ptr(), count.data_ptr(), n, columns, grad.shape[1], table.shape[1],
-            grad.stride(0), grad.stride(1), (ctypes.c_ubyte * columns)(*column_field), eps, -lr,
+            grad.stride(0), grad.stride(1), (ctypes.c_ubyte * columns)(*column_field),
+            -1 if skip is None else skip, eps, -lr,
             torch.cuda.current_stream(table.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bag_adagrad: CUDA error {rc} at launch")

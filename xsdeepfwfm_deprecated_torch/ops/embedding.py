@@ -30,7 +30,7 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -321,11 +321,18 @@ def bag_rows(spec: BagSpec, xi: torch.Tensor, table_rows: int) -> torch.Tensor:
 @dataclass
 class BagRecord:
     """One pooled lookup of a training forward: the table it read, its rows
-    (B, columns) and the pooled bags (B, fields, E), a leaf of autograd's."""
+    (B, columns) and the pooled bags (B, fields, E), a leaf of autograd's.
+    ``exchange``, where given (a sharded lookup, ``parallel/bag_sharding``),
+    turns the pooled bags' gradient into the table's :class:`BagGrad`."""
     table: torch.Tensor
     rows: torch.Tensor
     pooled: torch.Tensor
     spec: BagSpec
+    exchange: Optional[Callable[[torch.Tensor], "BagGrad"]] = None
+
+    def grad(self, g: torch.Tensor) -> "BagGrad":
+        """The table's gradient, from the gradient ``g`` of the pooled bags."""
+        return BagGrad(self.rows, g, self.spec) if self.exchange is None else self.exchange(g)
 
 
 @dataclass
@@ -378,10 +385,13 @@ def bag_lookup(table: torch.Tensor, spec: BagSpec, xi: torch.Tensor) -> torch.Te
 @dataclass
 class BagGrad:
     """A bag table's gradient as the backward leaves it: the rows each id
-    read (B, columns) and the gradient of each pooled bag (B, fields, E)."""
+    read (B, columns) and the gradient of each pooled bag (B, fields, E).
+    Rows from ``skip`` up are not the table's to step (a sharded step's ids of
+    rows that another rank holds); None: every row is."""
     rows: torch.Tensor
     grad: torch.Tensor
     spec: BagSpec
+    skip: Optional[int] = None
 
 
 @torch.no_grad()
@@ -397,7 +407,7 @@ def bag_adagrad_(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: float,
     position order and the row stepped once. On the CPU
     :func:`bag_adagrad_torch`."""
     if table.device.type == "cuda":
-        bag_adagrad(table, acc, g.rows, g.grad, g.spec.column_field, lr, eps, count)
+        bag_adagrad(table, acc, g.rows, g.grad, g.spec.column_field, lr, eps, count, g.skip)
     else:
         bag_adagrad_torch(table, acc, g, lr, eps, count)
 
@@ -412,7 +422,8 @@ def bag_adagrad_torch(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: fl
     nothing (and spreads those adds over many rows, where one row would take
     them all in turn). Each column's gradients are added into their segments
     straight from the bags', one column a launch, so no (N, E) copy of them is
-    made."""
+    made. Rows from ``g.skip`` up take a zero gradient, which leaves them, and
+    are not counted."""
     b, fields, e = g.grad.shape
     ids = g.rows.reshape(-1)
     n = ids.numel()
@@ -425,6 +436,8 @@ def bag_adagrad_torch(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: fl
     gsum = torch.zeros((n, e), dtype=g.grad.dtype, device=ids.device)
     for c, f in enumerate(g.spec.column_field):
         gsum.index_add_(0, seg_of[:, c], g.grad[:, f])
+    if g.skip is not None:
+        gsum.masked_fill_((rows >= g.skip)[:, None], 0.0)
     a = acc.index_select(0, rows)
     sq = gsum * gsum
     a.add_(sq)                                                      # each row's acc after
@@ -433,4 +446,4 @@ def bag_adagrad_torch(table: torch.Tensor, acc: torch.Tensor, g: BagGrad, lr: fl
     live = a > 0
     upd = a.add_(eps).rsqrt_().mul_(gsum).masked_fill_(~live, 0.0)
     table.index_add_(0, rows, upd, alpha=-lr)
-    count.add_(seg[-1] + 1)
+    count.add_(seg[-1] + 1 if g.skip is None else (new & (sorted_ids < g.skip)).sum())

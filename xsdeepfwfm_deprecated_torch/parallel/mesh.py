@@ -30,10 +30,11 @@ implicitly).
 
 Every collective goes through a :class:`Mesh` method, which appends its
 kind, group (``world``, ``data`` or ``model``), group size and bytes to
-``Mesh.traffic``: all-to-alls and all-reduces by their operand, all-gathers
-by their output, as
+``Mesh.traffic``: all-to-alls, all-reduces and reduce-scatters by their
+operand, all-gathers by their output, as
 ``tests/test_sharding.py::test_compiled_collective_bytes`` counts the
-collectives of JAX's compiled step.
+collectives of JAX's compiled step. It also adds what must leave this rank
+to ``utils.cuda_graph.EXCHANGE_BYTES`` (``profiling.counters()["exchange_bytes"]``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch.distributed as dist
 
 from .. import _tree
 from ..device import DeviceLike, resolve_device
+from ..utils import cuda_graph
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -120,7 +122,12 @@ class Mesh:
 
     def _record(self, kind: str, axes: Axes, n_bytes: int) -> None:
         group = {GRID_AXES: "world", (DATA_AXIS,): "data", (MODEL_AXIS,): "model"}[_axes(axes)]
-        self.traffic.append((kind, group, self.axis_size(axes), int(n_bytes)))
+        n = self.axis_size(axes)
+        self.traffic.append((kind, group, n, int(n_bytes)))
+        # what must leave this rank: (n - 1) / n of the bytes recorded, twice for an all-reduce
+        # (a reduce-scatter and an all-gather of its operand)
+        cuda_graph.EXCHANGE_BYTES.add(int(n_bytes) * (n - 1) // n * (2 if kind == "all-reduce"
+                                                                      else 1))
 
     def all_reduce(self, t: torch.Tensor, axes: Axes,
                    op: dist.ReduceOp = dist.ReduceOp.SUM) -> torch.Tensor:
@@ -140,6 +147,18 @@ class Mesh:
         dist.all_gather_into_tensor(out, t.reshape(-1).contiguous(), group=self.group(axes))
         self._record("all-gather", axes, n * t.numel() * t.element_size())
         return out.view((n,) + tuple(t.shape))
+
+    def reduce_scatter(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``t`` of shape ``(n, ...)`` summed over the ranks of ``axes``; each
+        rank gets block ``j`` of the sum, ``j`` its index along ``axes``."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return t[0]
+        out = t.new_empty(tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t.reshape((-1,) + tuple(t.shape[2:])).contiguous(),
+                                   group=self.group(axes))
+        self._record("reduce-scatter", axes, t.numel() * t.element_size())
+        return out
 
     def all_to_all(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
         """Block ``j`` of ``t``'s first dimension goes to the rank of index ``j``
@@ -382,6 +401,8 @@ def reduce_gradients(mesh: Mesh, grads: Sequence[torch.Tensor],
     optimizer, so it is counted once."""
     buckets: Dict[Tuple[Tuple[str, ...], torch.dtype], List[torch.Tensor]] = {}
     for g, sh in zip(grads, shardings):
+        if not isinstance(g, torch.Tensor):     # a bag table's, exchanged in its backward
+            continue
         axes = tuple(a for a in _axes(batch) if sh is None or a not in _axes(sh))
         if mesh.axis_size(axes) > 1:
             buckets.setdefault((axes, g.dtype), []).append(g)

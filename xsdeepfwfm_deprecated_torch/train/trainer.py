@@ -33,6 +33,10 @@ every global batch. What JAX's compiler does implicitly is written out:
 * gradients are summed over the ranks with other rows of the batch
   (``parallel.mesh.reduce_gradients``) before the optimizer adds L2, and the
   optimizer then runs on each rank's own leaves;
+* DLRM-DCNv2's bags (``DLRMEstimator``, ``-mesh_data`` alone) take their own
+  placement (``parallel/bag_sharding.py``): the large tables row-wise over
+  the ranks, the small ones whole on each, their ids, partial bags and
+  gradients exchanged inside the step;
 * dropout draws the global batch's numbers and keeps the rank's rows
   (``ops.mlp.BatchShard``), so a sharded fit trains the model of the
   unsharded one;
@@ -88,6 +92,7 @@ from ..ops.cuda.fused_adam import fused_adam
 from ..ops.mlp import BatchShard
 from ..parallel import embedding_sharding as es
 from ..parallel import mesh as mesh_mod
+from ..parallel.bag_sharding import ShardedBags
 from ..utils import cuda_graph, debug, profiling
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt
@@ -244,8 +249,9 @@ def loss_and_grads(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConf
     it. A table that a pooled bag lookup read
     (:func:`..ops.embedding.recording_bags`) gets a
     :class:`..ops.embedding.BagGrad`: the backward stops at the pooled bags,
-    and nothing the size of the table is made. ``params`` itself is left
-    without ``requires_grad``."""
+    and nothing the size of the table is made (on a mesh the gradient of a
+    rank's bags is gathered over the ranks, ``parallel/bag_sharding``, inside
+    the backward's span). ``params`` itself is left without ``requires_grad``."""
     leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
     it = iter(leaves)
     live = _tree.tree_map(lambda _: next(it), params)
@@ -258,15 +264,14 @@ def loss_and_grads(params: Dict, batch: Dict, mcfg: ModelConfig, tcfg: TrainConf
     with profiling.named_scope("step.backward"):
         got = torch.autograd.grad(loss, dense + [r.pooled for r in records.values()],
                                   allow_unused=True)
-    by_leaf = dict(zip([id(p) for p in dense] + list(records), got))
-    grads: List[Any] = []
-    for p in leaves:
-        g, r = by_leaf[id(p)], records.get(id(p))
-        if r is None:
-            grads.append(torch.zeros_like(p) if g is None else g)
-        else:
-            grads.append(emb_ops.BagGrad(r.rows, torch.zeros_like(r.pooled) if g is None else g,
-                                         r.spec))
+        by_leaf = dict(zip([id(p) for p in dense] + list(records), got))
+        grads: List[Any] = []
+        for p in leaves:
+            g, r = by_leaf[id(p)], records.get(id(p))
+            if r is None:
+                grads.append(torch.zeros_like(p) if g is None else g)
+            else:       # a sharded lookup's record exchanges the bags' gradient here
+                grads.append(r.grad(torch.zeros_like(r.pooled) if g is None else g))
     return loss.detach(), grads
 
 
@@ -656,8 +661,8 @@ class DeepFMEstimator:
         TrainConfig (``-mesh_data``/``-mesh_model``/``-exchange``); None for
         1x1. Raises a ``ValueError`` that says how to launch when the process
         group is missing or has another number of ranks, and one for a model
-        with ``use_cin`` or ``use_dlrm``, whose sharded forward has no CIN, no
-        bags and no cross network."""
+        with ``use_cin``, whose sharded forward has no CIN. DLRM-DCNv2's bags
+        take their own placement (:meth:`_place_tables`)."""
         tc = self.tcfg
         if tc.mesh_data == 1 and tc.mesh_model == 1:
             self._leave_mesh()
@@ -665,22 +670,22 @@ class DeepFMEstimator:
         if self.mcfg.use_cin:
             raise ValueError("a sharded fit does not take use_cin: train xDeepFM on one device "
                              "(-mesh_data 1 -mesh_model 1)")
-        if self.mcfg.use_dlrm:
-            raise ValueError("a sharded fit does not take use_dlrm: its exchanges shard one-hot "
-                             "tables, not DLRM-DCNv2's bags; train it on one device "
-                             "(-mesh_data 1 -mesh_model 1)")
         data = None if tc.mesh_data == 0 else tc.mesh_data
         mesh = self.mesh
         if mesh is None or mesh.model != tc.mesh_model or data not in (None, mesh.data):
             mesh = mesh_mod.make_mesh(data=data, model=tc.mesh_model, device=self.device)
-        # one resolver for exchange -> (lookup, table layout, batch layout): a2a_grid
-        # shards the tables over the whole grid, a2a and psum over `model`, and
-        # both of these fall back to pure data parallelism when model == 1
+        self._place_tables(mesh)
+        self.mesh = mesh
+        return mesh
+
+    def _place_tables(self, mesh: mesh_mod.Mesh) -> None:
+        """The lookup exchange and the tables' layout on ``mesh``: one resolver
+        for exchange -> (lookup, table layout, batch layout): a2a_grid shards the
+        tables over the whole grid, a2a and psum over `model`, and both of these
+        fall back to pure data parallelism when model == 1."""
         (self._lookup_fn, self._table_axes, self._table_shards,
          self._batch_both) = es.setup_exchange(mesh, type(self).model_spec(self.mcfg),
                                                self._exchange())
-        self.mesh = mesh
-        return mesh
 
     def _leave_mesh(self) -> None:
         self.mesh, self._lookup_fn = None, None
@@ -721,11 +726,19 @@ class DeepFMEstimator:
         """Pad the dense tables to the shard count and keep this rank's row
         blocks, of the parameters and of the optimizer state."""
         if self._table_shards > 1:
-            self.params = mesh_mod.shard_params(self.params, self.mesh, self._table_axes)
+            self.params = self._shard_tree(self.params)
             if self.opt_state is not None:
-                self.opt_state = mesh_mod.shard_params(self.opt_state, self.mesh,
-                                                       self._table_axes)
+                self.opt_state = self._shard_tree(self.opt_state)
             self._blocks = True
+
+    def _shard_tree(self, tree: Any) -> Any:
+        """This rank's part of a whole tree (parameters or optimizer state)."""
+        return mesh_mod.shard_params(tree, self.mesh, self._table_axes)
+
+    def _gather_tree(self, tree: Any) -> Any:
+        """Inverse of :meth:`_shard_tree` (collective)."""
+        return mesh_mod.gather_params(tree, self.mesh, self._table_axes,
+                                      type(self).model_spec(self.mcfg).dense_rows)
 
     def _full(self, tree: Any) -> Any:
         """``tree`` (parameters or optimizer state) whole and unpadded: as it
@@ -733,8 +746,7 @@ class DeepFMEstimator:
         (collective)."""
         if not self._blocks or tree is None:
             return tree
-        return mesh_mod.gather_params(tree, self.mesh, self._table_axes,
-                                      type(self).model_spec(self.mcfg).dense_rows)
+        return self._gather_tree(tree)
 
     def gather_params(self) -> Dict:
         """The whole, unpadded parameter tree on every rank (collective on a
@@ -918,7 +930,7 @@ class DeepFMEstimator:
             reduce = self._reducer()
             step_generator = BatchShard(generator, tc.batch_size, mesh_mod.batch_rows(
                 mesh, self._batch_axes(), tc.batch_size).start)
-            if self._table_shards > 1:
+            if self._table_shards > 1 and do_prune:
                 prune_kw.update(mesh=mesh, table_axes=self._table_axes,
                                 dense_rows=type(self).model_spec(self.mcfg).dense_rows)
         step_kw = dict(use_kd=teacher_model is not None, forward_fn=forward_fn, mesh=mesh,
@@ -1146,7 +1158,7 @@ class DeepFMEstimator:
         self.params, _, meta = ckpt.load_checkpoint(path, self.gather_params(), strict=strict,
                                                     device=self.device)
         if self.mesh is not None and self._table_shards > 1:
-            self.params = mesh_mod.shard_params(self.params, self.mesh, self._table_axes)
+            self.params = self._shard_tree(self.params)
             self._blocks = True
         self._step = meta.get("step", 0)
         return self
@@ -1190,13 +1202,57 @@ class DLRMEstimator(DeepFMEstimator):
     """DLRM-DCNv2 (``use_dlrm``, :mod:`..models.dlrm`) with the estimator's
     surface: ``fit`` steps its bags' Adagrad on the batch's rows alone, eval
     and ``predict`` run its forward, ``save`` and ``load`` its leaves. It
-    trains with ``adag`` and no weight decay, on one device, unpruned and
-    without a teacher: ``fit`` refuses the rest, each with a ``ValueError``
-    that says why."""
+    trains with ``adag`` and no weight decay, unpruned and without a teacher:
+    ``fit`` refuses the rest, each with a ``ValueError`` that says why.
+
+    On a ``-mesh_data N`` mesh (``-mesh_model 1``) the batch is split over the
+    ranks and the bags are placed as ``parallel/bag_sharding`` says: the tables
+    of more than ``-bag_row_wise_rows`` rows row-wise over every rank, the
+    others whole on each, the dense leaves whole on each with their gradients
+    all-reduced; a step is the one-process step of the global batch.
+    ``unshard`` gathers the tables where the device holds them whole and raises
+    where it cannot, naming the sizes."""
 
     model_forward = staticmethod(dlrm.forward)
     model_init = staticmethod(dlrm.init_params)
     model_spec = staticmethod(dlrm.make_bag_spec)
+
+    def _setup_mesh(self) -> Optional[mesh_mod.Mesh]:
+        if self.tcfg.mesh_model != 1:
+            raise ValueError(f"DLRM-DCNv2's bags take a mesh of -mesh_data ranks alone (row-wise "
+                             f"tables over every rank, the batch split over them): set "
+                             f"-mesh_model 1, not {self.tcfg.mesh_model}")
+        return super()._setup_mesh()
+
+    def _place_tables(self, mesh: mesh_mod.Mesh) -> None:
+        self._bags = ShardedBags(mesh, dlrm.make_bag_spec(self.mcfg),
+                                 self.mcfg.bag_row_wise_rows)
+        self._lookup_fn, self._table_axes = self._bags.lookup, mesh_mod.GRID_AXES
+        self._table_shards, self._batch_both = mesh.size, False
+
+    def _exchange(self) -> str:
+        return f"bags row-wise over {self.mcfg.bag_row_wise_rows:,} rows"
+
+    def _shard_tree(self, tree: Any) -> Any:
+        return self._bags.shard(tree)
+
+    def _gather_tree(self, tree: Any) -> Any:
+        return self._bags.gather(tree)
+
+    def _reducer(self) -> Callable[[List[torch.Tensor]], None]:
+        return self._bags.reduce
+
+    def _sparsity_report(self, total: int) -> Dict[str, float]:
+        if not self._blocks:
+            return sparsity_report(self.params)
+        p, named = self._bags.placement, list(_tree.named_leaves(self.params))
+        table = next(t for n, t in named if dlrm.is_bag_state(n))
+        nonzero = int(self.mesh.all_reduce(torch.count_nonzero(table[p.whole_rows:]),
+                                           mesh_mod.GRID_AXES)
+                      + torch.count_nonzero(table[:p.whole_rows])
+                      + sum(torch.count_nonzero(t) for n, t in named if not dlrm.is_bag_state(n)))
+        return {"total": total, "nonzero": nonzero,
+                "sparsity_pct": 100.0 * (1.0 - nonzero / max(total, 1))}
 
     def fit(self, *args, prune: Optional[bool] = None,
             teacher_model: Optional[DeepFMEstimator] = None, **kw) -> "DLRMEstimator":

@@ -43,8 +43,9 @@ alone decides, on every call:
   graph, so that each replay draws the numbers that eager calls would have
   drawn next from them;
 * what the function counts (:class:`Counter`): the launches of the port's
-  kernels (:data:`KERNELS`, which ``ops/cuda`` fills) and, on a mesh, the
-  collectives of ``Mesh.traffic``. The warm-up and the capture are set-up,
+  kernels (:data:`KERNELS`, which ``ops/cuda`` fills), the bytes its
+  collectives send (:data:`EXCHANGE_BYTES`) and, on a mesh, the collectives
+  of ``Mesh.traffic``. The warm-up and the capture are set-up,
   like a compile, and leave every counter as they found it; each replay adds
   what the capture recorded. A count kept on the card (:func:`device_count`)
   is added to by the replay's own kernels; the warm-up's additions are taken
@@ -137,6 +138,28 @@ class Log(Counter):
     def add(self, added: list) -> None:
         self.entries.extend(added)
 
+
+class Total(Counter):
+    """A running total that the program adds to, such as the bytes its
+    collectives send (:data:`EXCHANGE_BYTES`)."""
+
+    def __init__(self, name: str):
+        self.name, self.value = name, 0
+
+    def mark(self) -> int:
+        return self.value
+
+    def since(self, mark: int) -> int:
+        return self.value - mark
+
+    def reset(self, mark: int) -> None:
+        self.value = mark
+
+    def add(self, added: int) -> None:
+        self.value += added
+
+
+EXCHANGE_BYTES = Total("exchange_bytes")   # what this process's collectives send (parallel.mesh)
 
 CAPTURES: List[Tuple[str, int]] = []    # (graph name, perf_counter_ns) of each capture of Compiled
 _ON_CARD: Dict[Tuple[str, str], torch.Tensor] = {}    # (name, device) -> a count kept there
@@ -306,7 +329,8 @@ class Graphed:
                  counters: Sequence[Counter] = (),
                  barrier: Optional[Callable[[], None]] = None):
         self.name = name
-        self.counters: List[Counter] = [Launches(k) for k in KERNELS.values()] + list(counters)
+        self.counters: List[Counter] = ([Launches(k) for k in KERNELS.values()] + [EXCHANGE_BYTES]
+                                        + list(counters))
         before = [c.mark() for c in self.counters]
         counts = {key: t.clone() for key, t in _ON_CARD.items()}
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in inputs]

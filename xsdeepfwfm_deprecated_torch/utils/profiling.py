@@ -26,7 +26,8 @@ names and signatures; every timer returns seconds per call.
   own, and the others go unread. A graph captured with tracing off holds no
   events: :class:`.cuda_graph.Compiled` keeps a traced variant beside it.
 * :func:`counters` reads the graphs' capture counts by name, the kernels'
-  launches (:class:`.cuda_graph.Counter`) and the counts kept on the card
+  launches (:class:`.cuda_graph.Counter`), the bytes the mesh's collectives
+  sent (``exchange_bytes``) and the counts kept on the card
   (:func:`.cuda_graph.device_count`, such as the bag rows Adagrad updated),
   which it alone reads back.
 * :func:`trace` runs ``torch.profiler.profile`` over the block with tracing
@@ -75,6 +76,13 @@ SCOPE_CIN = "CIN - Component"          # xDeepFM's CIN; a "CIN - Layer {k}" span
 SCOPE_BAGS_LOOKUP = "Bags - Lookup"     # DLRM-DCNv2's pooled lookup of its multi-hot bags
 SCOPE_BAGS_UPDATE = "Bags - Update"     # their rows' sum-and-Adagrad in the optimizer
 SCOPE_DCN = "DCN - Component"           # its cross network; a "DCN - Layer {k}" span a layer inside
+# a sharded DLRM-DCNv2 step's exchanges (parallel/bag_sharding): the global batch's ids to every
+# rank, the row blocks' partial bags reduce-scattered to the examples' ranks, the bags' gradients
+# gathered to every rank, the dense gradients all-reduced
+SCOPE_BAGS_IDS_EXCHANGE = "Bags - Ids Exchange"
+SCOPE_BAGS_POOL_EXCHANGE = "Bags - Pool Exchange"
+SCOPE_BAGS_GRAD_EXCHANGE = "Bags - Grad Exchange"
+SCOPE_DENSE_ALL_REDUCE = "Dense - All Reduce"
 
 DEVICE = "device:"     # the name prefix of a span read from a graph's events
 READ_EVERY = 16        # a graph still running at its next replay: one replay in this many is read
@@ -335,14 +343,17 @@ def capturing(device: torch.device):
 def counters(**extra) -> Dict[str, Dict]:
     """What the program has counted: the graphs captured, by name (every
     :class:`.cuda_graph.Compiled` counts its captures), the launches of each
-    kernel of ``cuda_graph.KERNELS``, each count kept on the card by name
-    (``bag_rows_updated``: the distinct table rows the bags' Adagrad stepped;
-    read back here, with a sync), and the mark of each
+    kernel of ``cuda_graph.KERNELS``, ``exchange_bytes`` (the bytes this
+    process's collectives must send from it, ``parallel.mesh.Mesh``; through
+    graph replays as the launches; 0 on one device), each count kept on the
+    card by name (``bag_rows_updated``: the distinct table rows the bags'
+    Adagrad stepped; read back here, with a sync), and the mark of each
     :class:`.cuda_graph.Counter` given by name in ``extra`` (a ``Log``'s
     entry count)."""
     from . import cuda_graph
     return {"captures": dict(collections.Counter(name for name, _ in cuda_graph.CAPTURES)),
             "launches": {name: k.launches for name, k in cuda_graph.KERNELS.items()},
+            "exchange_bytes": cuda_graph.EXCHANGE_BYTES.value,
             "on_card": cuda_graph.device_counts(),
             **({"extra": {k: c.mark() for k, c in extra.items()}} if extra else {})}
 
