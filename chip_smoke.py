@@ -158,8 +158,18 @@ Phases, each printed on its own line:
      sink's row untouched, the count the distinct rows held; then the cell's training step
      through make_train_step: the kernel's launches on every replay, ms a step and its top
      device operations.
+ 28. the fp32 forward at a small batch as the two kernels of csrc/small_forward.cu (the
+     lookup with FwLW and FwFM, then the tower in one cluster) at the benchmark's Avazu and
+     Criteo configurations: against the graph of ops at every batch the route takes
+     (a cluster of 16 blocks), within 1e-5 of the largest |logit| and 1, two runs
+     bit-equal; device time as a CUDA graph of 20 calls (median of 10) at B = 1 to 32 beside
+     the bound (the least bytes at 3.35 TB/s) and the graph of ops, and each kernel alone
+     at B=1; the Predictor's B=1 requests by the host clock (p50, p95), the kernels' route
+     and the graph of ops in turns; the B=1 request's graph profiled in a process of its own
+     over 50 requests after 3 unrecorded ones (each of the two kernels 50 times and no other
+     kernel, each logit the graph of ops'); a request's launches, 2 at B=1 and 0 at B=8192.
 --phases N [N ...] runs phases 1 to 3, then the listed ones (a number names its group:
-4 to 7, 8 to 11, 12 to 16, and 17 to 27 each alone), without the result lines.
+4 to 7, 8 to 11, 12 to 16, and 17 to 28 each alone), without the result lines.
 --parity CHECKPOINT CACHE runs phases 1 to 3, then tools.int8_auc_parity on a checkpoint saved
 by tools.synthetic_scale_run and its --cache, with the fused tower's launches (one per 8192-row
 batch of the test slice) and its max |diff| against the plain version on the first batch; the
@@ -168,7 +178,8 @@ then one JSON line of per-kernel results (the fused Adam kernel's launches by ph
 graph replays counted and a sharded rank's added: above 0 on every path that trains, 0 on
 the serving phases 4 to 7 and the timers' phase 21; the CIN's above 0 on phase 26 alone, the
 one path that runs xDeepFM; the bags' Adagrad's above 0 on phase 27 alone, the one path that
-runs DLRM-DCNv2), the card's line, and as the last line
+runs DLRM-DCNv2; the small forward's above 0 on the serving phases, whose B=1 requests take
+it, and 0 on the xDeepFM and DLRM-DCNv2 paths), the card's line, and as the last line
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX.
@@ -197,7 +208,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BATCH = 8192
 PHASE_GROUPS = ((4, 7), (8, 11), (12, 16), (17, 17), (18, 18), (19, 19), (20, 20),
-                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25), (26, 26), (27, 27))
+                (21, 21), (22, 22), (23, 23), (24, 24), (25, 25), (26, 26), (27, 27),
+                (28, 28))
 LAST_PHASE = PHASE_GROUPS[-1][1]
 TRAIN_BATCH = 2048
 TRAIN_BATCHES = 64
@@ -212,6 +224,12 @@ FP32_FLOP_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores (NVIDIA data
 # and 3), which parts them by a few units in the last place of the terms' magnitudes.
 CIN_TOL = 1e-5
 CIN_RAGGED = ((11, 7, 203, 161), (5, 5, 7, 83), (200, 39, 200, 4001))   # (H_{k-1}, m, H_k, rows)
+# phase 28: the small-batch kernels against the graph of ops, of the largest |logit| and 1 (the
+# same float32 products summed in another order; tests/test_torch_small_forward.py)
+SMALL_TOL = 1e-5
+SMALL_SWEEP = (1, 2, 4, 8, 16, 32)
+SMALL_REQUESTS = 2000             # B=1 requests a turn of the Predictor's host-clock timing
+SMALL_PROFILED = (3, 50)          # B=1 requests a profile leaves unrecorded, then records
 
 
 def phase(n: int, msg: str) -> None:
@@ -3847,6 +3865,203 @@ def bag_skip_case(args, card: str) -> dict:
             "bit_equal": same, "peak_bytes": peak}
 
 
+def small_forward_bytes(cfg, b: int) -> int:
+    """The least bytes of an fp32 forward of ``b`` rows: the tower's weights, biases and
+    head, R, ``fwlw_w``, ``lw_w`` and the bias read once, and each row's gathered table
+    rows, ids and values read and its logit written once."""
+    f, e, num = cfg.field_size, cfg.embedding_size, cfg.numerical
+    dims = (f * e,) + tuple(cfg.deep_layers)
+    tower = sum(k * n + n for k, n in zip(dims[:-1], dims[1:])) + dims[-1]
+    return 4 * (tower + f * f + f * e + f + 1 + b * (f * e + f + 1))
+
+
+def small_profile(name: str, seed: int) -> dict:
+    """Phase 28's profile of the B=1 request, for a process of its own: a ``Predictor``
+    over the configuration ``name``'s params from ``seed`` answers ``SMALL_PROFILED[0]``
+    requests unrecorded, then ``SMALL_PROFILED[1]`` that ``torch.profiler`` records, a
+    sync after each. Returns the card's kernels by name and count, the ``cudaGraphLaunch``
+    calls recorded, and how many recorded requests' logits are off the graph of ops'
+    (a replay whose kernels did not run leaves the previous request's logit)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from port_bench.program import model_config
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.embedding import packed_lookup_serving
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+
+    cfg = model_config(json.loads((BENCH_CONFIGS / f"{name}.json").read_text()))
+    params = deepfwfm.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    pred = Predictor(params, cfg)
+    plain = Predictor(params, cfg, forward_fn=lambda p, xi, xv, c: deepfwfm.forward(
+        p, xi, xv, c, lookup_fn=packed_lookup_serving))
+    rng = np.random.default_rng(seed + 3000)
+    highs = np.array(cfg.feature_sizes[cfg.numerical:])
+    skip, calls = SMALL_PROFILED
+    pool = [(rng.integers(-2, highs + 2, size=(1, len(highs))).astype(np.int32),
+             rng.normal(size=(1, cfg.numerical)).astype(np.float32)) for _ in range(skip + calls)]
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=skip - 1, active=calls, repeat=1)) as prof:
+        for xi, xv in pool:
+            got.append(pred.logits(xi, xv))
+            torch.cuda.synchronize()
+            prof.step()
+    averages = prof.key_averages()
+    kernels = {e.key: e.count for e in averages
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))}  # not kernels
+    off = sum(abs(float(g[0] - w[0])) > SMALL_TOL * max(1.0, abs(float(w[0])))
+              for g, w in zip(got[skip:], (plain.logits(*r) for r in pool[skip:])))
+    return {"kernels": kernels, "off": int(off),
+            "replays": sum(e.count for e in averages if e.key == "cudaGraphLaunch")}
+
+
+def small_forward_phase(args, card: str) -> dict:
+    """Phase 28: the fp32 forward at a small batch as the two kernels of
+    csrc/small_forward.cu at the benchmark's Avazu and Criteo configurations:
+    against the graph of ops at every batch the route takes, device times beside
+    the bound and the graph of ops, the Predictor's B=1 requests by the host clock
+    on both routes in turns, a profile of its graph and the launches it adds.
+    Returns the kernels line's entries."""
+    from port_bench.program import model_config
+    from xsdeepfwfm_deprecated_torch.models import deepfwfm
+    from xsdeepfwfm_deprecated_torch.ops.cuda import small_forward as sf
+    from xsdeepfwfm_deprecated_torch.ops.embedding import packed_lookup_serving
+    from xsdeepfwfm_deprecated_torch.serving.predictor import Predictor
+
+    where = f"[{card}]"
+    dev = torch.device("cuda")
+    out = {}
+    for name in ("deepfwfm_avazu", "deepfwfm_criteo"):
+        cfg = model_config(json.loads((BENCH_CONFIGS / f"{name}.json").read_text()))
+        check(sf.small_forward_route(cfg, 1) and not sf.small_forward_route(cfg, 8192),
+              f"{name}: the route's choice at B=1 and 8192")
+        params = deepfwfm.init_params(torch.Generator().manual_seed(args.seed), cfg, device=dev)
+        model = sf.pack(params, cfg)
+        highs = np.array(cfg.feature_sizes[cfg.numerical:])
+
+        def rows(b: int, seed: int, device=dev):
+            rng = np.random.default_rng(seed)
+            xi = rng.integers(-2, highs + 2, size=(b, len(highs))).astype(np.int32)
+            xv = rng.normal(size=(b, cfg.numerical)).astype(np.float32)
+            return torch.from_numpy(xi).to(device), torch.from_numpy(xv).to(device)
+
+        def graph(xi, xv):
+            return deepfwfm.forward(params, xi, xv, cfg, lookup_fn=packed_lookup_serving)
+
+        worst = 0.0
+        alone = {"shallow_kernel": 0.0, "tower_kernel": 0.0}
+        with torch.inference_mode():
+            for b in range(1, sf.SMALL_BATCH_MAX + 1):
+                xi, xv = rows(b, args.seed + b)
+                want = graph(xi, xv)
+                scale = max(1.0, float(want.abs().max()))
+                x, sums = sf.shallow_reference(model, xi, xv)   # each kernel alone
+                for key, got, ref in (
+                        ("shallow_kernel", sf.shallow(model, xi, xv), sums),
+                        ("tower_kernel", sf.tower(model, xi, xv, sums),
+                         sf.tower_reference(model, x, sums))):
+                    alone[key] = max(alone[key], float((got - ref).abs().max())
+                                     / max(1.0, float(ref.abs().max())))
+                got = sf.small_forward(model, xi, xv)
+                torch.cuda.synchronize()
+                worst = max(worst, float((got - want).abs().max()) / scale)
+                check(torch.equal(sf.small_forward(model, xi.long(), xv), got),
+                      f"{name} B={b}: two runs of the kernels differ")
+            check(max(worst, *alone.values()) <= SMALL_TOL,
+                  f"{name}: the kernels vs the graph of ops {worst}, alone {alone}, of the "
+                  f"largest |value| and 1")
+            phase(28, f"{name}: the two kernels against the graph of ops at B=1 to "
+                      f"{sf.SMALL_BATCH_MAX}, worst gap of the largest |logit| and 1 (tol "
+                      f"{SMALL_TOL}): {worst:.3e}"
+                  + "; each alone against its plain version: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in alone.items()) + f" {where}")
+            sweep = {}
+            for b in SMALL_SWEEP:
+                xi, xv = rows(b, args.seed + 100 + b)
+                ms = {}
+                for key in ("kernels", "graph", "graph", "kernels"):    # in turns
+                    f = (lambda: graph(xi, xv)) if key == "graph" else (
+                        lambda: sf.small_forward(model, xi, xv))
+                    ms.setdefault(key, []).append(graph_ms(f))
+                ms = {k: min(v) for k, v in ms.items()}
+                bound = small_forward_bytes(cfg, b) / HBM_BYTES_PER_S * 1e3
+                sweep[b] = {"kernels_ms": round(ms["kernels"], 5),
+                            "graph_ms": round(ms["graph"], 5), "bound_ms": round(bound, 6)}
+                print(f"  B={b}: kernels {ms['kernels']:.4f} ms | graph of ops "
+                      f"{ms['graph']:.4f} ms | bound {bound:.5f} ms "
+                      f"({small_forward_bytes(cfg, b):,} B at 3.35 TB/s) {where}")
+            xi, xv = rows(1, args.seed + 1)
+            sums = sf.shallow(model, xi, xv)
+            shallow_ms = graph_ms(lambda: sf.shallow(model, xi, xv))
+            tower_ms = graph_ms(lambda: sf.tower(model, xi, xv, sums))
+            print(f"  B=1 alone: shallow_kernel {shallow_ms:.4f} ms, tower_kernel {tower_ms:.4f} "
+                  f"ms {where}")
+
+        # the Predictor: B=1 requests from host numpy, both routes in turns
+        plain_fn = lambda p, xi, xv, c: deepfwfm.forward(  # noqa: E731
+            p, xi, xv, c, lookup_fn=packed_lookup_serving)
+        preds = {"kernels": Predictor(params, cfg), "graph": Predictor(params, cfg,
+                                                                       forward_fn=plain_fn)}
+        pool = [tuple(t.cpu().numpy() for t in rows(1, args.seed + 1000 + i, "cpu"))
+                for i in range(256)]
+        for pred in preds.values():
+            pred.logits(*pool[0])
+        a, b_ = (preds[k].logits(*pool[1]) for k in ("kernels", "graph"))
+        check(abs(float(a[0] - b_[0])) <= SMALL_TOL * max(1.0, abs(float(b_[0]))),
+              f"{name}: the Predictor's routes differ at B=1: {a} {b_}")
+        lat = {k: [] for k in preds}
+        for key in ("kernels", "graph", "graph", "kernels") * 2:
+            pred = preds[key]
+            for i in range(SMALL_REQUESTS):
+                t0 = time.perf_counter()
+                pred.logits(*pool[i % len(pool)])
+                lat[key].append((time.perf_counter() - t0) * 1e3)
+        pct = {k: (float(np.percentile(v, 50)), float(np.percentile(v, 95)))
+               for k, v in lat.items()}
+        print(f"  Predictor at B=1, {len(lat['kernels']):,} requests a route in turns, host "
+              f"clock: kernels p50 {pct['kernels'][0]:.4f} p95 {pct['kernels'][1]:.4f} ms | "
+              f"graph of ops p50 {pct['graph'][0]:.4f} p95 {pct['graph'][1]:.4f} ms {where}")
+
+        # what the request's graph launches, profiled in a process of its own: in one that has
+        # run the other phases the profiler misses the kernel records of one to four of 50
+        # replays whose cudaGraphLaunch calls it records (H100, torch 2.11), in one that has
+        # run nothing else it does not
+        skip, calls = SMALL_PROFILED
+        res = subprocess.run(
+            [sys.executable, "-c", "import json, sys, chip_smoke; print(json.dumps("
+             "chip_smoke.small_profile(sys.argv[1], int(sys.argv[2]))))", name, str(args.seed)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"{name}: the profile's process failed:\n{res.stderr[-3000:]}")
+        profiled = json.loads(res.stdout.strip().splitlines()[-1])
+        kernels = profiled["kernels"]
+        ours = {k: n for k, n in kernels.items() if "shallow_kernel" in k or "tower_kernel" in k}
+        check(len(ours) == 2 and ours == kernels and all(n == calls for n in ours.values())
+              and profiled["off"] == 0,
+              f"{name}: {calls} B=1 requests' graphs ({profiled['replays']} cudaGraphLaunch "
+              f"calls recorded) launched {kernels}, {profiled['off']} logits off")
+        pred = preds["kernels"]
+        added = []
+        for b in (1, 8192):
+            xi, xv = rows(b, args.seed + 2000 + b, "cpu")
+            before = sf.small_forward.launches
+            pred.logits(xi.numpy(), xv.numpy())
+            added.append(sf.small_forward.launches - before)
+        check(added == [2, 0], f"{name}: a request at B=1 and 8192 added {added} launches")
+        print(f"  the B=1 request's graph launches {kernels} and no other kernel ({calls} "
+              f"requests profiled after {skip} unrecorded, in a process of their own, each "
+              f"logit within {SMALL_TOL}); launches added by a request: B=1 {added[0]}, B=8192 "
+              f"{added[1]}")
+        out[name] = {"worst_gap": worst, "alone_gap": alone,
+                     "shallow_ms": round(shallow_ms, 5),
+                     "tower_ms": round(tower_ms, 5), "sweep": sweep,
+                     "predictor_b1_ms": {k: [round(v, 4) for v in p] for k, p in pct.items()}}
+        del params, model, preds, pred
+        torch.cuda.empty_cache()
+    return {"device_ms_by_config": out}
+
+
 def serving_phases(args, cfg, card: str, params_cpu, reqs) -> dict:
     """Phases 4 to 7: fp32 and int8 serving through the Predictor, the tower's
     two kernels against the plain version, times. Returns the kernels line's
@@ -4074,8 +4289,8 @@ def main(argv=None) -> int:
                          "every rank adds tens of seconds to the phase)")
     ap.add_argument("--phases", type=int, nargs="+", choices=range(4, LAST_PHASE + 1),
                     metavar="N", help="phases 1 to 3, then the groups of the listed phases "
-                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27), without the "
-                    "result lines")
+                    "(4-7, 8-11, 12-16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28), without "
+                    "the result lines")
     ap.add_argument("--parity", nargs=2, metavar=("CHECKPOINT", "CACHE"),
                     help="phases 1 to 3, then tools.int8_auc_parity on a saved checkpoint with "
                          "the fused tower's launches and its max |diff| against the plain "
@@ -4142,6 +4357,8 @@ def main(argv=None) -> int:
             cin_phase(args, card)
         if 27 in groups:
             bag_update_phase(args, card)
+        if 28 in groups:
+            small_forward_phase(args, card)
         print(card)
         return 0
     if args.parity:
@@ -4156,12 +4373,20 @@ def main(argv=None) -> int:
     from xsdeepfwfm_deprecated_torch.ops.cuda.cin import cin
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
     from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
-    adam, prune, cins, bags = {}, {}, {}, {}
+    from xsdeepfwfm_deprecated_torch.ops.cuda.small_forward import small_forward
+    adam, prune, cins, bags, smalls = {}, {}, {}, {}, {}
 
     def counting_adam(path: str, trains: bool, prunes: bool, run, *run_args,
                       xdeepfm: bool = False, dlrm: bool = False) -> dict:
         fused_adam.launches = prune_search.launches = cin.launches = bag_adagrad.launches = 0
+        small_forward.launches = 0
         out = run(*run_args) or {}
+        # the fp32 forward at a small batch: the serving path's B=1 requests take it, and the
+        # paths of the port's other models never do
+        check(small_forward.launches > 0 if path == "serving" else
+              small_forward.launches == 0 if path in ("xdeepfm", "dlrm") else True,
+              f"the {path} path made {small_forward.launches} small_forward launches")
+        smalls[f"launches_{path}_path"] = small_forward.launches
         check(cin.launches > 0 if xdeepfm else cin.launches == 0,
               f"the {path} path made {cin.launches} CIN launches")
         cins[f"launches_{path}_path"] = cin.launches
@@ -4218,8 +4443,11 @@ def main(argv=None) -> int:
     # ---- 27. DLRM-DCNv2's sparse Adagrad kernel and the DLRM cell's train step (Adagrad:
     # no fused Adam)
     bag_out = counting_adam("dlrm", False, False, bag_update_phase, args, card, dlrm=True)
+
+    # ---- 28. the fp32 forward at a small batch as two kernels, beside the graph of ops
+    small_out = small_forward_phase(args, card)
     for name, counts in (("fused Adam", adam), ("prune_search", prune), ("cin", cins),
-                         ("bag_adagrad", bags)):
+                         ("bag_adagrad", bags), ("small_forward", smalls)):
         print(f"  {name} launches by path (graph replays counted): "
               + ", ".join(f"{k[len('launches_'):-len('_path')]} {v}" for k, v in counts.items()))
 
@@ -4240,7 +4468,10 @@ def main(argv=None) -> int:
          "replaces": None, **cins, **cin_out},
         {"name": "bag_adagrad", "route": "cuda",
          "source": "xsdeepfwfm_deprecated_torch/csrc/bag_adagrad.cu", "replaces": None,
-         **bags, **bag_out}]
+         **bags, **bag_out},
+        {"name": "small_forward", "route": "cuda",
+         "source": "xsdeepfwfm_deprecated_torch/csrc/small_forward.cu", "replaces": None,
+         **smalls, **small_out}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -79,7 +79,7 @@ def test_graph_replay_counts_the_captured_launches(monkeypatch):
             out.add_(x)
         return out
 
-    int8_mlp.launches = 7
+    monkeypatch.setattr(int8_mlp, "launches", 7)     # the count is the process's: restored after
     gen = torch.Generator()
     g = cuda_graph.Graphed(two_towers, (torch.ones(3),), device=torch.device("cpu"),
                            name="two towers", generators=(gen,))
@@ -104,7 +104,7 @@ def test_graph_capture_failure_names_the_function(monkeypatch):
         yield
 
     _streams_on_the_cpu(monkeypatch, capture)
-    int8_mlp.launches = 3
+    monkeypatch.setattr(int8_mlp, "launches", 3)
 
     def tower(x):
         int8_mlp.launches += 1

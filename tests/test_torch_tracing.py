@@ -251,18 +251,20 @@ def test_tracing_on_captures_a_second_variant_and_off_goes_back_to_the_first(mon
     assert name == "g" and at <= time.perf_counter_ns()
 
 
-def test_counters_read_the_launches_and_a_log():
+def test_counters_read_the_launches_and_a_log(monkeypatch):
     from xsdeepfwfm_deprecated_torch.ops.cuda.bag_adagrad import bag_adagrad
     from xsdeepfwfm_deprecated_torch.ops.cuda.cin import cin
     from xsdeepfwfm_deprecated_torch.ops.cuda.fused_adam import fused_adam
     from xsdeepfwfm_deprecated_torch.ops.cuda.int8_mlp import int8_mlp
     from xsdeepfwfm_deprecated_torch.ops.cuda.prune_search import prune_search
+    from xsdeepfwfm_deprecated_torch.ops.cuda.small_forward import small_forward
     traffic = [("all-reduce", "world", 4, 8)] * 3
-    int8_mlp.launches = 5
+    monkeypatch.setattr(int8_mlp, "launches", 5)     # the count is the process's: restored after
     out = P.counters(traffic=cuda_graph.Log(traffic))
     assert out["launches"]["int8_mlp"] == 5 and out["extra"] == {"traffic": 3}
     assert sorted(out["launches"]) == ["bag_adagrad", "cin", "fused_adam", "int8_mlp",
-                                       "prune_search"]
+                                       "prune_search", "small_forward"]
+    assert out["launches"]["small_forward"] == small_forward.launches
     assert out["launches"]["bag_adagrad"] == bag_adagrad.launches
     assert out["launches"]["cin"] == cin.launches
     assert out["launches"]["fused_adam"] == fused_adam.launches

@@ -2,13 +2,20 @@
 :class:`CompactModel`.
 
 Port of ``xsdeepfwfm_deprecated_tpu/serving/predictor.py:22-111``. The model
-moves to the device once, at construction. On the card each batch shape is
-captured into a CUDA graph on its first request (or by :meth:`Predictor.warmup`),
-as the JAX package traces one executable for each shape with ``jax.jit``;
+moves to the device once, at construction; DeepFwFM's fp32 params are copied
+there, so that the Predictor serves them as they were given at every batch
+size, as the JAX package's serves its immutable arrays (its small batches read
+a laid-out copy of the tower, its larger ones the params). On the card each
+batch shape is captured into a CUDA graph on its first request (or by
+:meth:`Predictor.warmup`), as the JAX package traces one executable for each
+shape with ``jax.jit``;
 every request is then a copy into the graph's input buffers, one replay and
 one copy of the logits back (:meth:`Predictor.replay` is the same without the
 host copies, on tensors already on the device). On the CPU the forward runs
-eagerly. A request's spans (:mod:`..utils.profiling`): ``request``, and in it
+eagerly. On the card an fp32 DeepFwFM batch of at most ``SMALL_BATCH_MAX``
+rows runs the two kernels of :mod:`..ops.cuda.small_forward` in place of the
+graph of ops; ``small_forward_route`` decides. A request's spans
+(:mod:`..utils.profiling`): ``request``, and in it
 ``request.copy_in`` (on the card the copy into the graph's input buffers),
 ``request.launch`` (the replay, or the eager forward), both in
 :meth:`Predictor.replay`, ``request.wait`` (with tracing on only: the host
@@ -27,6 +34,7 @@ from ..compression.quantization import QuantizedModel, quantized_forward
 from ..config import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..models import deepfwfm, dlrm
+from ..ops.cuda import small_forward
 from ..ops.embedding import packed_lookup_serving
 from ..utils import cuda_graph, profiling
 from .compaction import CompactModel, compact_forward
@@ -77,12 +85,12 @@ class Predictor:
             if cfg is None:
                 raise ValueError("fp32 params need an explicit ModelConfig")
             self.cfg = cfg
-            self._model = _tree.tree_map(lambda t: t.to(self.device), model)
             if forward_fn is None and cfg.use_dlrm:
                 forward_fn = dlrm.forward
-            if forward_fn is None:
-                self._fn = lambda p, xi, xv: deepfwfm.forward(p, xi, xv, cfg,
-                                                              lookup_fn=packed_lookup_serving)
+            own = forward_fn is None    # deepfwfm.forward's params: the Predictor's own copy
+            self._model = _tree.tree_map(lambda t: t.to(self.device, copy=own), model)
+            if own:
+                self._fn = _fp32_forward(self._model, cfg, kernels=self.device.type == "cuda")
             else:
                 self._fn = lambda p, xi, xv: forward_fn(p, xi, xv, cfg)
         self._graphs = cuda_graph.Compiled(
@@ -128,3 +136,20 @@ class Predictor:
             self.logits(np.zeros((b, self.cfg.index_columns), np.int32),
                         np.zeros((b, self.cfg.numerical), np.float32))
         return self
+
+
+def _fp32_forward(params: Dict, cfg: ModelConfig, kernels: bool) -> Callable:
+    """The fp32 forward of ``models/deepfwfm.forward``. With ``kernels`` (on the
+    card), a batch that ``small_forward.small_forward_route`` takes runs the two
+    kernels of ``ops/cuda/small_forward`` instead, on the model as
+    :func:`small_forward.pack` lays it out now, from the Predictor's own copy of
+    the params; every other batch runs the graph of ops. The route is picked once
+    a batch shape, at its capture."""
+    small = (small_forward.pack(params, cfg)
+             if kernels and small_forward.small_forward_route(cfg, 1) else None)
+
+    def forward(p: Dict, xi: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        if small is not None and small_forward.small_forward_route(cfg, xi.shape[0]):
+            return small_forward.small_forward(small, xi, xv)
+        return deepfwfm.forward(p, xi, xv, cfg, lookup_fn=packed_lookup_serving)
+    return forward
